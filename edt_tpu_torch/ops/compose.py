@@ -1,0 +1,99 @@
+"""N-D composition of the 1-D EDT passes on torch tensors (counterpart of
+``edt_tpu.ops.compose``).
+
+A Rosenfeld–Pfaltz pass along the first axis of ``axis_order``, then a
+Felzenszwalb–Huttenlocher parabolic pass along each remaining axis. Each
+pass moves its axis last and makes the tensor contiguous, so every pass
+works on (rows, n) C-order rows. Arrays are plain (s0, ..., sk) tensors
+with anisotropy[k] attached to axis k; C/F order is the API layer's
+concern.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from edt_tpu_torch.ops import core, minplus
+
+
+def _along_last(fn, axis, *tensors):
+    """Move ``axis`` of every tensor last (contiguous), call fn, move back."""
+    moved = [t.movedim(axis, -1).contiguous() for t in tensors]
+    return fn(*moved).movedim(-1, axis)
+
+
+def edtsq(
+    labels: torch.Tensor,
+    anisotropy,
+    black_border: bool = False,
+    binary: bool = False,
+    parabolic_fn=None,
+    axis_order: tuple | None = None,
+) -> torch.Tensor:
+    """Squared multi-label anisotropic EDT of an N-D label tensor.
+
+    labels: 0 is background; label boundaries act as walls at distance w.
+    anisotropy: (ndim,) voxel pitch per axis. binary: fast path for
+    two-valued volumes (nonzero = one foreground label).
+    parabolic_fn: the parabolic pass, (f2d, labels2d, w2, black_border,
+    binary) -> d2d; None takes ``minplus.make_parabolic_fn()``, which runs
+    the K1 kernel on CUDA tensors and its plain version on CPU tensors.
+    axis_order: static permutation whose first entry takes the RP pass;
+    default (nd-1, ..., 0).
+    """
+    nd = labels.dim()
+    anisotropy = [core.f32(a) for a in anisotropy]
+    if len(anisotropy) != nd:
+        raise ValueError(f"anisotropy must have {nd} components")
+    if parabolic_fn is None:
+        parabolic_fn = minplus.make_parabolic_fn()
+    if axis_order is None:
+        axis_order = tuple(range(nd - 1, -1, -1))
+
+    a1 = axis_order[0]
+    f = _along_last(
+        lambda lab: core.rp_pass_sq(lab, anisotropy[a1], black_border),
+        a1, labels)
+
+    for ax in axis_order[1:]:
+        w = anisotropy[ax]
+        if binary:
+            f = _along_last(
+                lambda ff: core.parabolic_pass_sq(
+                    ff, ff, w, black_border, binary=True,
+                    parabolic_fn=parabolic_fn),
+                ax, f)
+        else:
+            f = _along_last(
+                lambda ff, lab: core.parabolic_pass_sq(
+                    ff, lab, w, black_border, parabolic_fn=parabolic_fn),
+                ax, f, labels)
+    return f
+
+
+def edt(labels, anisotropy, black_border=False, parabolic_fn=None,
+        axis_order=None):
+    """Euclidean distance (sqrt of edtsq)."""
+    return torch.sqrt(edtsq(labels, anisotropy, black_border,
+                            parabolic_fn=parabolic_fn, axis_order=axis_order))
+
+
+def sdfsq(labels, anisotropy, black_border=False, parabolic_fn=None,
+          axis_order=None):
+    """Squared signed distance field: edtsq(x) - edtsq(x == 0)."""
+    fg = edtsq(labels, anisotropy, black_border, parabolic_fn=parabolic_fn,
+               axis_order=axis_order)
+    bg = edtsq((labels == 0).to(torch.uint8), anisotropy, black_border,
+               binary=True, parabolic_fn=parabolic_fn, axis_order=axis_order)
+    return fg - bg
+
+
+def sdf(labels, anisotropy, black_border=False, parabolic_fn=None,
+        axis_order=None):
+    """Signed distance field: edt(x) - edt(x == 0)."""
+    fg = edt(labels, anisotropy, black_border, parabolic_fn=parabolic_fn,
+             axis_order=axis_order)
+    bg = torch.sqrt(edtsq((labels == 0).to(torch.uint8), anisotropy,
+                          black_border, binary=True,
+                          parabolic_fn=parabolic_fn, axis_order=axis_order))
+    return fg - bg

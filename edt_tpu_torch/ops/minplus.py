@@ -1,0 +1,115 @@
+"""K1: the min-plus parabolic pass with fused wall parabolas.
+
+Counterpart of ``edt_tpu.ops.pallas_kernels.minplus_pallas`` with
+``walls=True`` and of its ``make_parabolic_fn``. The kernel is
+``csrc/minplus.cu`` (CUDA C++ for sm_90a, built by ``_build``, bound with
+ctypes); ``minplus_walls_plain`` is its plain PyTorch version.
+
+``minplus_walls`` launches the kernel for CUDA tensors and takes the plain
+version only for CPU tensors. ``launches`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from edt_tpu_torch.ops import _build, core
+
+# Longest row the kernel takes: it stages one f32 row in shared memory,
+# and an H100 block may opt in to 232448 bytes, less the kernel's few
+# static bytes. Longer axes take the host fallback.
+MAX_SMEM_BYTES = 232448
+MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
+
+# The plain version's (rows, n, n) cost tensor stays below this.
+PLAIN_COST_BYTES = 1 << 30
+
+launches = 0
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(
+            f"{name}: expected {dtype} {shape} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _kernel():
+    lib = _build.load("minplus")
+    fn = lib.edt_minplus_walls
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def minplus_walls_plain(f, ss, se, w2, black_border, masked):
+    """Plain PyTorch version of the kernel: brute-force unmasked min-plus
+    plus the wall parabolas (``core.border_envelopes_sq`` masked, the
+    whole-row border parabolas for binary). Background needs no zeroing:
+    it carries f == 0, and candidate j == i pins it to 0."""
+    n = f.shape[-1]
+    d = core.minplus_masked(
+        f, None, w2, row_chunk=max(1, PLAIN_COST_BYTES // (4 * n * n or 1)))
+    if masked:
+        return core.border_envelopes_sq(d, ss, se, n, w2, black_border)
+    return core.binary_border_sq(d, n, w2) if black_border else d
+
+
+def minplus_walls(f, ss, se, w2, black_border, masked):
+    """d[r, i] = min_j f[r, j] + w2 (i - j)^2, then the walls.
+
+    f: (R, n) f32; ss, se: (R, n) int32 segment bounds when ``masked``
+    (multi-label), ignored otherwise (binary). All C-contiguous on one
+    device. CUDA tensors run the K1 kernel; CPU tensors the plain version.
+    """
+    global launches
+    if f.device.type == "cpu":
+        return minplus_walls_plain(f, ss, se, w2, black_border, masked)
+    if f.device.type != "cuda":
+        raise ValueError(f"minplus_walls: unsupported device {f.device}")
+    if f.dim() != 2:
+        raise ValueError(f"f must be (rows, n), got shape {tuple(f.shape)}")
+    R, n = f.shape
+    _check("f", f, torch.float32, (R, n), f.device)
+    if masked:
+        _check("ss", ss, torch.int32, (R, n), f.device)
+        _check("se", se, torch.int32, (R, n), f.device)
+    if n > MAX_AXIS:
+        raise ValueError(f"rows of {n} exceed the kernel's {MAX_AXIS}")
+    if R >= 2 ** 31:
+        raise ValueError(f"{R} rows exceed one launch grid")
+    out = torch.empty_like(f)
+    if R == 0 or n == 0:
+        return out
+    fn = _kernel()
+    err = fn(f.data_ptr(), ss.data_ptr() if masked else None,
+             se.data_ptr() if masked else None, out.data_ptr(), R, n,
+             core.f32(w2), int(masked), int(black_border),
+             torch.cuda.current_stream(f.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"minplus_walls kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def make_parabolic_fn(minplus_fn=minplus_walls):
+    """Whole parabolic pass, (f2d, labels2d, w2, black_border, binary) ->
+    d2d: segment bounds, then ``minplus_fn`` with the walls fused. The
+    default is ``compose.edtsq``'s; ``make_parabolic_fn(minplus_walls_plain)``
+    is the same pass through the plain version on any device."""
+
+    def fn(f2d, labels2d, w2, black_border, binary):
+        if binary:
+            return minplus_fn(f2d, None, None, w2, black_border, masked=False)
+        ss, se = core.segment_bounds(labels2d)
+        return minplus_fn(f2d, ss, se, w2, black_border, masked=True)
+
+    return fn
