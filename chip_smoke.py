@@ -3,13 +3,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``edt_tpu_torch/csrc``, holds every kernel
-bit-exact against its plain PyTorch version on the card, drives the
-port's main path (the forward multi-label EDT through ``edt_tpu_torch``)
-at 128^3 and at the 512^3 ``bench.py`` volume, times it with CUDA events,
-and checks the counts of kernel launches. Prints one JSON line with the
-kernels' numbers, then as its last line
-``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
-there is no CUDA device or any phase fails. Imports nothing of JAX.
+against its plain PyTorch version on the card (K1 and K2 bit-exact, K3 and
+K4 within rtol=1e-5, atol=1e-5: the same sums in another order), and
+drives the port's two main paths at 128^3 and at the 512^3 ``bench.py``
+volume:
+
+- slice 1, the forward multi-label EDT through the NumPy API (K1);
+- slice 2, ``bench.py``'s workload: the gradient of
+  sum(multilabel_edtsq(labels, occupancy, (6, 6, 30), black_border=True,
+  binary_occupancy=True)) w.r.t. the occupancy (K2, K3, K4), and the
+  general path (binary_occupancy=False).
+
+Each path runs with the launch counts set to 0 just before it and checked
+just after. Times come from CUDA events. Prints one JSON line with the
+kernels' numbers, then as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero, without that line, when there is no CUDA device or any
+phase fails. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 
 ANISO = (6.0, 6.0, 30.0)
 FULL = 512
+SMALL = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -83,6 +93,57 @@ class Exact:
                                  + "; ".join(self.failures[:10]))
 
 
+class Close(Exact):
+    """Comparisons within rtol, atol: gradients, whose sums the kernels
+    and their plain versions take in another order."""
+
+    def __init__(self, rtol=1e-5, atol=1e-5):
+        super().__init__()
+        self.rtol, self.atol = rtol, atol
+
+    def check(self, name, got, ref):
+        got = torch.as_tensor(got).to("cpu")
+        ref = torch.as_tensor(ref).to("cpu")
+        if got.shape != ref.shape:
+            self.failures.append(f"{name}: shape {tuple(got.shape)} vs "
+                                 f"{tuple(ref.shape)}")
+            return
+        err = float((got - ref).abs().max()) if ref.numel() else 0.0
+        self.max_abs_err = max(self.max_abs_err, err)
+        if not torch.allclose(got, ref, rtol=self.rtol, atol=self.atol):
+            self.failures.append(f"{name}: max |diff| {err}")
+
+
+def row_radii(f, bound, w2):
+    """(R, 1) pruning radii of K1 and K2: the ulp-guarded floor of
+    sqrt((max_i bound_i - min_i f_i) / w2), clamped to n."""
+    from edt_tpu_torch.ops import core
+
+    n = f.shape[1]
+    minf = f.amin(dim=1)
+    gap = bound.amax(dim=1) - minf
+    gap = torch.where(torch.isfinite(gap), gap.clamp(min=0.0),
+                      torch.where(minf == float("inf"), 0.0, float("inf")))
+    r = torch.sqrt(gap / core.f32(w2)) * core.f32(1.00001) + core.f32(0.01)
+    return torch.clamp(r, max=float(n)).to(torch.int64)[:, None]
+
+
+def k2_candidates(f, walls, w2):
+    """Candidates K2 scans on these inputs: its per-row radius, windows
+    clipped to the row. ``walls``: f32 squared walls or None."""
+    n = f.shape[1]
+    i = torch.arange(n, dtype=torch.int64, device=f.device)
+    r = row_radii(f, f if walls is None else torch.minimum(f, walls), w2)
+    return int((torch.clamp(i + r + 1, max=n) - torch.clamp(i - r, min=0)).sum())
+
+
+def bound_ms(nbytes, ops):
+    """Least time on the card: HBM bytes or f32 operations, the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def k1_candidates(f, ss, se, w2, black_border, masked):
     """Candidates K1 scans on these inputs (its per-row radius, windows
     clipped to the row and, masked, to the target's segment)."""
@@ -102,12 +163,7 @@ def k1_candidates(f, ss, se, w2, black_border, masked):
     elif black_border:
         bw = core.binary_border_sq(torch.full_like(f, float("inf")), n, w2)
         bound = torch.minimum(f, bw)
-    minf = f.amin(dim=1)
-    gap = bound.amax(dim=1) - minf
-    gap = torch.where(torch.isfinite(gap), gap.clamp(min=0.0),
-                      torch.where(minf == float("inf"), 0.0, float("inf")))
-    r = torch.sqrt(gap / w2) * core.f32(1.00001) + core.f32(0.01)
-    r = torch.clamp(r, max=float(n)).to(torch.int64)[:, None]
+    r = row_radii(f, bound, w2)
     lo = torch.clamp(i - r, min=0)
     hi = torch.clamp(i + r + 1, max=n)
     if masked:
@@ -121,16 +177,15 @@ def k1_bound_ms(f, ss, se, w2, black_border, masked):
     masked, read once; d written once) or f32 operations (4 a candidate:
     square, scale, add, min), whichever is larger."""
     nbytes = f.numel() * (16 if masked else 8)
-    ops = 4 * k1_candidates(f, ss, se, w2, black_border, masked)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, 4 * k1_candidates(f, ss, se, w2, black_border,
+                                              masked))
 
 
-def profile(fn, label, top=8):
+def profile(fn, label, top=8, by_op=False):
     """One run of ``fn`` under torch.profiler: wall time, device busy time
     (kernels and copies: the device-side events), idle share, and the
-    device events that take the most time."""
+    device events that take the most time; ``by_op`` also ranks the host
+    ops by the device time of the kernels each launched itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -142,17 +197,21 @@ def profile(fn, label, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, ops = [], []
     for ev in prof.key_averages():
-        # "Activity Buffer Request" is the profiler's own bookkeeping
-        if (ev.device_type != DeviceType.CUDA
-                or ev.key.startswith("Activity Buffer")):
-            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        rows.append((us / 1e3, ev.count, ev.key))
+        if ev.device_type != DeviceType.CUDA:
+            # host ops, by the device time of the kernels each launched
+            if by_op and us > 0:
+                ops.append((us / 1e3, ev.count, ev.key))
+            continue
+        # "Activity Buffer Request" is the profiler's own bookkeeping
+        if not ev.key.startswith("Activity Buffer"):
+            rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
+    ops.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     copies = sum(r[0] for r in rows if r[2].startswith("Memcpy"))
     print(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} "
@@ -161,6 +220,11 @@ def profile(fn, label, top=8):
     for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}  x{count:<4d} "
               f"{key[:80]}")
+    if ops:
+        print("  by the host op that launched them:")
+        for ms, count, key in ops[:top]:
+            print(f"  {ms:9.3f} ms  {ms / max(busy, 1e-9):6.1%}  x{count:<4d} "
+                  f"{key[:80]}")
 
 
 def phase_build():
@@ -362,6 +426,291 @@ def phase_slice_full(exact, kernels, dev):
     })
 
 
+def grad_rows(rng, rows, n, w):
+    """Rows of the regimes K2 has, with int16 wall counts: source-rich,
+    barrier with sparse sources, equal-cost ties (sources every 10, walls
+    at the same distance), walls everywhere, one all-INF row."""
+    q = max(1, rows // 4)
+    f = (rng.random((rows, n)) * 25 * w * w).astype(np.float32)
+    f[rng.random((rows, n)) > 0.6] = 0.0
+    cnt = rng.integers(1, 40, size=(rows, n)).astype(np.int16)
+    cnt[rng.random((rows, n)) > 0.9] = 30000  # open sides
+    f[q:2 * q] = 2.7e5 * w * w
+    f[q:2 * q, ::70] = 0.0
+    i = np.arange(n)
+    f[2 * q:3 * q] = 1000.0 * w * w
+    f[2 * q:3 * q, ::10] = 0.0
+    cnt[2 * q:3 * q] = np.maximum(np.minimum(i % 10, 10 - i % 10), 1)
+    cnt[3 * q:] = rng.integers(1, 4, size=cnt[3 * q:].shape)
+    f[-1] = np.inf
+    return f, cnt
+
+
+def check_grads(close3, close4, name, ft, o, w2, walls_f32, dev, rng):
+    """K3 on K2's residual ``o`` and K4 on the closed-form binary pass's
+    residual of the same rows, each against its plain version."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import grad
+
+    g = torch.from_numpy(rng.uniform(-1, 1, ft.shape).astype(np.float32)).to(dev)
+    sent = torch.iinfo(o.dtype).min
+    close3.check(f"K3 {name}", grad.minplus_grad(g, offsets=o, off_sent=sent),
+                 grad.minplus_grad_plain(g, offsets=o, off_sent=sent))
+    fb = torch.where(ft <= 0, 0.0, 5e4)
+    d, argj = soft._minplus_hard_binary_with_arg(fb, w2)
+    for win in (None, d <= walls_f32):
+        ob = soft._binary_offsets(fb, argj, win)
+        s = None if win is None else sent
+        close4.check(f"K4 {name} walled={win is not None}",
+                     grad.binary_grad_scan(g, ob, off_sent=s),
+                     grad.binary_grad_scan_plain(g, ob, off_sent=s))
+
+
+def phase_grad_kernel_cases(exact, close3, close4, dev):
+    """K2 against its plain version, bit-exact, over its regimes, wall
+    kinds and arg encodings; K3 and K4 on the residuals, within tolerance."""
+    from edt_tpu_torch.ops import argmin, core
+
+    rng = np.random.default_rng(11)
+    cases = []
+    for n in (1, 127, 300, 512, 2049):
+        for w in (1.3, 6.0, 30.0):
+            f, cnt = grad_rows(rng, 64 if n <= 512 else 16, n, w)
+            cases.append((f"n={n} w={w}", f, cnt, w))
+    n_k2 = 0
+    for name, f, cnt, w in cases:
+        w2 = core.f32(core.f32(w) ** 2)
+        ft = torch.from_numpy(f).to(dev)
+        ct = torch.from_numpy(cnt).to(dev)
+        wf = argmin.walls_from_counts(ct, w2)
+        c32 = torch.where(ct >= 30000, 1 << 30, ct.to(torch.int32))
+        for wname, walls in (("none", None), ("f32", wf), ("int16", ct),
+                             ("int32", c32)):
+            for emit in (False, True):
+                d, a = argmin.minplus_argmin(ft, w2, walls, emit)
+                rd, ra = argmin.minplus_argmin_plain(ft, w2, walls, emit)
+                exact.check(f"K2 {name} walls={wname} offsets={emit} d", d, rd)
+                exact.check(f"K2 {name} walls={wname} offsets={emit} arg", a, ra)
+                n_k2 += 1
+        _, o = argmin.minplus_argmin(ft, w2, ct, True)
+        check_grads(close3, close4, name, ft, o, w2, wf, dev, rng)
+    # rows beyond int16: int32 counts and int32 offsets
+    n = 16001
+    f, cnt = grad_rows(rng, 4, n, 6.0)
+    ft = torch.from_numpy(f).to(dev)
+    c32 = torch.from_numpy(np.where(cnt >= 30000, 1 << 30,
+                                    cnt.astype(np.int32))).to(dev)
+    d, o = argmin.minplus_argmin(ft, 36.0, c32, True)
+    rd, ro = argmin.minplus_argmin_plain(ft, 36.0, c32, True)
+    exact.check("K2 n=16001 int32 d", d, rd)
+    exact.check("K2 n=16001 int32 offsets", o, ro)
+    if o.dtype != torch.int32:
+        raise AssertionError(f"n=16001 offsets are {o.dtype}, not int32")
+    check_grads(close3, close4, "n=16001", ft, o, 36.0,
+                argmin.walls_from_counts(c32, 36.0), dev, rng)
+    try:
+        argmin.minplus_argmin(ft, 36.0, torch.from_numpy(cnt).to(dev), True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("int16 wall counts on rows of 16001 did not raise")
+    exact.raise_if_failed("K2 vs plain")
+    close3.raise_if_failed("K3 vs plain")
+    close4.raise_if_failed("K4 vs plain")
+    print(f"K2 vs plain: {n_k2 + 1} cases bit-exact; K3 and K4 vs plain on "
+          f"{len(cases) + 1} residuals, within rtol={close3.rtol}, "
+          f"atol={close3.atol}: max abs err K3 {close3.max_abs_err}, "
+          f"K4 {close4.max_abs_err}")
+
+
+def fwd_bwd(labels, occ, binary_occupancy, barrier, kernels=None):
+    """bench.py's step on the port: multilabel_edtsq and the gradient of
+    its sum w.r.t. the occupancy."""
+    from edt_tpu_torch.models import soft
+
+    occ = occ.detach().requires_grad_()
+    out = soft.multilabel_edtsq(labels, occ, ANISO, black_border=True,
+                                barrier=barrier,
+                                binary_occupancy=binary_occupancy,
+                                kernels=kernels or soft.KERNELS)
+    (g,) = torch.autograd.grad(out.sum(), occ)
+    return out.detach(), g
+
+
+def grad_launches():
+    from edt_tpu_torch.ops import argmin, grad
+
+    return (argmin.launches, grad.minplus_grad_launches,
+            grad.binary_grad_scan_launches)
+
+
+def zero_grad_launches():
+    from edt_tpu_torch.ops import argmin, grad
+
+    argmin.launches = 0
+    grad.minplus_grad_launches = 0
+    grad.binary_grad_scan_launches = 0
+
+
+def check_soft_slice(exact, close, dev, size, seed):
+    """multilabel_edtsq fwd+bwd through the kernels against the same path
+    through the plain versions, both flag sets; the forward against the
+    hard edtsq. Returns the launch counts of the bench and general runs."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import compose
+
+    labels = make_labels(np.random.default_rng(seed), size)
+    lt = torch.from_numpy(labels.view(np.int32)).to(dev)
+    occ = (lt != 0).to(torch.float32)
+    barrier = float(np.sum((np.asarray(ANISO) * size) ** 2))
+    counts = {}
+    for flags, binocc in (("bench", True), ("general", False)):
+        zero_grad_launches()
+        out, g = fwd_bwd(lt, occ, binocc, barrier)
+        counts[flags] = grad_launches()
+        ref, rg = fwd_bwd(lt, occ, binocc, barrier, soft.PLAIN)
+        exact.check(f"{size}^3 {flags} forward vs plain", out, ref)
+        close.check(f"{size}^3 {flags} gradient vs plain", g, rg)
+        print(f"  {size}^3 {flags}: gradient vs the plain path max abs err "
+              f"{float((g - rg).abs().max())}, bit-equal {torch.equal(g, rg)}")
+        if not (torch.isfinite(out).all() and torch.isfinite(g).all()):
+            raise AssertionError(f"{size}^3 {flags}: non-finite values")
+        del ref, rg
+    exact.check(f"{size}^3 forward vs hard edtsq", out,
+                compose.edtsq(lt, ANISO, True, axis_order=(1, 0, 2)))
+    exact.raise_if_failed(f"soft slice at {size}^3")
+    close.raise_if_failed(f"soft slice at {size}^3")
+    return counts, labels, lt, occ, barrier
+
+
+def phase_soft_small(exact, close, dev):
+    counts, *_ = check_soft_slice(exact, close, dev, SMALL, 3)
+    print(f"soft slice at {SMALL}^3: forward bit-exact to the plain path and to "
+          f"the hard edtsq, gradients within tolerance; launches "
+          f"(K2, K3, K4) bench {counts['bench']}, general {counts['general']}")
+
+
+def phase_soft_full(exact, close, close3, close4, kernels, dev):
+    """bench.py's workload at 512^3: exactness, launch counts, times, each
+    new kernel alone at its pass shape, and a profile."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import argmin, core, grad
+
+    counts, labels, lt, occ, barrier = check_soft_slice(exact, close, dev,
+                                                       FULL, 42)
+    if counts["bench"] != (2, 2, 1) or counts["general"] != (3, 3, 0):
+        raise AssertionError(f"launches (K2, K3, K4): bench {counts['bench']} "
+                             f"(expected (2, 2, 1)), general "
+                             f"{counts['general']} (expected (3, 3, 0))")
+    vox = labels.size
+    torch.cuda.reset_peak_memory_stats()
+    fb_ms, fb_all = cuda_ms(lambda: fwd_bwd(lt, occ, True, barrier), reps=7)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        fwd_ms, fwd_all = cuda_ms(lambda: soft.multilabel_edtsq(
+            lt, occ, ANISO, True, barrier=barrier, binary_occupancy=True),
+            reps=7)
+    gen_ms, gen_all = cuda_ms(lambda: fwd_bwd(lt, occ, False, barrier), reps=5)
+    metric = f"{FULL}^3 multi-label anisotropic EDT fwd+bwd (1 chip)"
+    print(f"bench.py metric '{metric}': {vox / fb_ms * 1e3:.1f} voxels/s")
+    print(f"{FULL}^3 fwd+bwd (bench flags): {fb_ms:.2f} ms median of "
+          f"{[round(t, 2) for t in fb_all]}, {vox / fb_ms / 1e3:.1f} Mvox/s; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    print(f"{FULL}^3 forward only: {fwd_ms:.2f} ms median of "
+          f"{[round(t, 2) for t in fwd_all]}")
+    print(f"{FULL}^3 fwd+bwd (general path): {gen_ms:.2f} ms median of "
+          f"{[round(t, 2) for t in gen_all]}, {vox / gen_ms / 1e3:.1f} Mvox/s")
+
+    # each kernel alone at its pass shape: step 0 (axis 1, closed form +
+    # K4) feeds step 1 (axis 0, K2 + K3)
+    with torch.no_grad():
+        f0 = (core.f32(barrier) * occ).movedim(1, -1).contiguous().reshape(-1, FULL)
+        c1 = soft._wall_counts(lt, 1, True).movedim(1, -1).contiguous()
+        c1 = c1.reshape(-1, FULL)
+        w2 = core.f32(ANISO[1] ** 2)
+        d0, argj0 = soft._minplus_hard_binary_with_arg(f0, w2)
+        win0 = d0 <= argmin.walls_from_counts(c1, w2)
+        o0 = soft._binary_offsets(f0, argj0, win0)
+        step0 = torch.where(win0, d0, argmin.walls_from_counts(c1, w2))
+        f1 = (step0.reshape(FULL, FULL, FULL).movedim(-1, 1).movedim(0, -1)
+              .contiguous().reshape(-1, FULL))
+        c0 = soft._wall_counts(lt, 0, True).movedim(0, -1).contiguous()
+        c0 = c0.reshape(-1, FULL)
+        w2 = core.f32(ANISO[0] ** 2)
+        del d0, argj0, win0, step0
+    R = f1.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = torch.rand((R, FULL), generator=gen, device=dev) * 2 - 1
+
+    k2 = lambda: argmin.minplus_argmin(f1, w2, c0, True)  # noqa: E731
+    k2_plain = lambda: argmin.minplus_argmin_plain(f1, w2, c0, True)  # noqa: E731
+    d1, o1 = k2()
+    rd, ro = k2_plain()
+    exact.check("512^3 K2 pass d", d1, rd)
+    exact.check("512^3 K2 pass offsets", o1, ro)
+    exact.raise_if_failed("K2 at 512^3")
+    del rd, ro
+    k2_ms, _ = cuda_ms(k2, reps=20, warmup=2)
+    k2_plain_ms, _ = cuda_ms(k2_plain, reps=3)
+    cands = k2_candidates(f1, argmin.walls_from_counts(c0, w2), w2)
+    k2_bound = bound_ms(12 * f1.numel(), 4 * cands)
+
+    sent = torch.iinfo(o1.dtype).min
+    k3 = lambda: grad.minplus_grad(g, offsets=o1, off_sent=sent)  # noqa: E731
+    k3_plain = lambda: grad.minplus_grad_plain(g, offsets=o1, off_sent=sent)  # noqa: E731
+    close3.check("512^3 K3 pass", k3(), k3_plain())
+    idx = torch.arange(FULL, device=dev)
+    live = o1 != sent
+    links = torch.where(live, idx + o1.to(torch.int64), idx)
+    gm = torch.where(live, g, 0.0)
+    k3_ms, _ = cuda_ms(k3, reps=20, warmup=2)
+    k3_plain_ms, _ = cuda_ms(k3_plain, reps=5)
+    k3_lib_ms, _ = cuda_ms(lambda: torch.zeros_like(g).scatter_add_(1, links, gm),
+                           reps=20, warmup=2)
+    k3_bound = bound_ms(10 * g.numel(), int(live.sum()))
+    del links, gm, live
+
+    k4 = lambda: grad.binary_grad_scan(g, o0, off_sent=sent)  # noqa: E731
+    k4_plain = lambda: grad.binary_grad_scan_plain(g, o0, off_sent=sent)  # noqa: E731
+    close4.check("512^3 K4 pass", k4(), k4_plain())
+    close3.raise_if_failed("K3 at 512^3")
+    close4.raise_if_failed("K4 at 512^3")
+    k4_ms, _ = cuda_ms(k4, reps=20, warmup=2)
+    k4_plain_ms, _ = cuda_ms(k4_plain, reps=5)
+    # bytes; the scans' adds (two a voxel) are far below them
+    k4_bound = bound_ms(10 * g.numel(), 2 * g.numel())
+
+    for name, ms, pms, (bms, by), lib in (
+            ("K2", k2_ms, k2_plain_ms, k2_bound, None),
+            ("K3", k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
+            ("K4", k4_ms, k4_plain_ms, k4_bound, None)):
+        print(f"{name} one pass {(R, FULL)}: {ms:.3f} ms, plain {pms:.1f} ms, "
+              f"bound {bms:.3f} ms ({by})"
+              + (f", library scatter_add_ {lib:.3f} ms" if lib else
+                 ", no one-call library equivalent"))
+    print(f"K2 scans {cands / f1.numel():.1f} candidates a voxel")
+    del f1, c0, o1, o0, f0, c1, g
+
+    profile(lambda: fwd_bwd(lt, occ, True, barrier),
+            f"{FULL}^3 multilabel_edtsq fwd+bwd (bench flags)", top=12,
+            by_op=True)
+
+    src = "edt_tpu_torch/csrc/"
+    rep = "edt_tpu/ops/pallas_kernels.py:"
+    for name, file, line, n, err, ms, pms, (bms, by), lib in (
+            ("minplus_argmin", "argmin.cu", 1275, counts["bench"][0],
+             exact.max_abs_err, k2_ms, k2_plain_ms, k2_bound, None),
+            ("minplus_grad", "grad.cu", 1616, counts["bench"][1],
+             close3.max_abs_err, k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
+            ("binary_grad_scan", "grad.cu", 1751, counts["bench"][2],
+             close4.max_abs_err, k4_ms, k4_plain_ms, k4_bound, None)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + file,
+            "replaces": rep + str(line), "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -377,14 +726,24 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     dev = torch.device("cuda")
-    exact = Exact()
+    exact = Exact()  # K1 and slice 1
+    exact2 = Exact()  # K2 and the forward of slice 2
+    close = Close()  # the gradients of slice 2
+    close3, close4 = Close(), Close()  # K3, K4
     kernels = []
     failed = []
     t0 = time.perf_counter()
     phases = [("build", phase_build),
               ("kernel vs plain", lambda: phase_kernel_cases(exact, dev)),
               ("slice 128^3", lambda: phase_slice_small(exact, dev)),
-              ("slice 512^3", lambda: phase_slice_full(exact, kernels, dev))]
+              ("slice 512^3", lambda: phase_slice_full(exact, kernels, dev)),
+              ("K2-K4 vs plain",
+               lambda: phase_grad_kernel_cases(exact2, close3, close4, dev)),
+              ("soft slice 128^3",
+               lambda: phase_soft_small(exact2, close, dev)),
+              ("soft slice 512^3",
+               lambda: phase_soft_full(exact2, close, close3, close4, kernels,
+                                       dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:

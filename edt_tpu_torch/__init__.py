@@ -6,7 +6,8 @@ NumPy-facing API (drop-in for the reference package ``edt``):
   edt1d, edt1dsq, edt2d, edt2dsq, edt3d, edt3dsq
 
 Each runs on the CUDA device unless ``device=`` names another (the tests
-pass ``device="cpu"``). The package imports torch and numpy, never jax.
+pass ``device="cpu"``). The differentiable transforms are in
+``edt_tpu_torch.models``. The package imports torch and numpy, never jax.
 """
 
 from edt_tpu_torch.api import (

@@ -127,7 +127,9 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
 
 def test_import_hygiene():
     """edt_tpu_torch imports neither jax nor anything of edt_tpu."""
-    code = ("import sys, edt_tpu_torch, edt_tpu_torch.ops.compose; "
+    code = ("import sys, edt_tpu_torch, edt_tpu_torch.ops.compose, "
+            "edt_tpu_torch.ops.argmin, edt_tpu_torch.ops.grad, "
+            "edt_tpu_torch.models; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'edt_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -11,13 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from edt_tpu_torch.ops import core, minplus
+from edt_tpu_torch.models import soft
+from edt_tpu_torch.ops import argmin, core, grad, minplus
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the K1 kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -66,3 +67,75 @@ def test_minplus_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         minplus.minplus_walls(f.t().contiguous().t(), None, None, 1.0, False,
                               False)
+
+
+def _argmin_rows(n, rng):
+    """f, int16 wall counts (some open) and f32 walls over rows of n: a
+    source-rich half, a barrier half with sparse sources, an all-INF row."""
+    f = (rng.random((16, n)) * 50).astype(np.float32)
+    f[rng.random((16, n)) > 0.6] = 0.0
+    f[8:] = 2.7e5
+    f[8:, ::70] = 0.0
+    f[5] = np.inf
+    cnt = rng.integers(1, 40, size=(16, n)).astype(np.int16)
+    cnt[rng.random((16, n)) > 0.9] = 30000
+    return f, cnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 300, 512])
+def test_argmin_kernel_matches_plain(cuda, n):
+    f, cnt = _argmin_rows(n, np.random.default_rng(n))
+    ft = torch.from_numpy(f).to(cuda)
+    ct = torch.from_numpy(cnt).to(cuda)
+    for w2 in (1.69, 36.0, 900.0):
+        wf = argmin.walls_from_counts(ct, w2)
+        for walls in (None, wf, ct, ct.to(torch.int32)):
+            for emit in (False, True):
+                before = argmin.launches
+                d, a = argmin.minplus_argmin(ft, w2, walls, emit)
+                assert argmin.launches == before + 1
+                rd, ra = argmin.minplus_argmin_plain(ft, w2, walls, emit)
+                assert torch.equal(d, rd) and torch.equal(a, ra)
+
+
+@pytest.mark.cuda
+def test_grad_kernels_match_plain(cuda):
+    rng = np.random.default_rng(1)
+    f, cnt = _argmin_rows(300, rng)
+    ft = torch.from_numpy(f).to(cuda)
+    _, o = argmin.minplus_argmin_plain(ft, 36.0, torch.from_numpy(cnt).to(cuda),
+                                       True)
+    g = torch.from_numpy(rng.uniform(-1, 1, f.shape).astype(np.float32)).to(cuda)
+    sent = torch.iinfo(o.dtype).min
+    got = grad.minplus_grad(g, offsets=o, off_sent=sent)
+    ref = grad.minplus_grad_plain(g, offsets=o, off_sent=sent)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    # the closed-form binary pass's residual: zero sites at the dtype max
+    fb = torch.where(ft <= 0, 0.0, 5e4)
+    _, argj = soft._minplus_hard_binary_with_arg(fb, 36.0)
+    walls = argmin.walls_from_counts(torch.from_numpy(cnt).to(cuda), 36.0)
+    d, _ = soft._minplus_hard_binary_with_arg(fb, 36.0)
+    ob = soft._binary_offsets(fb, argj, d <= walls)
+    got = grad.binary_grad_scan(g, ob, off_sent=sent)
+    ref = grad.binary_grad_scan_plain(g, ob, off_sent=sent)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binocc", [True, False])
+def test_multilabel_edtsq_kernels_match_plain(cuda, binocc):
+    rng = np.random.default_rng(2)
+    labels = np.kron(rng.integers(0, 4, size=(4, 4, 4)),
+                     np.ones((8, 8, 8), np.uint8)).astype(np.int32)
+    lt = torch.from_numpy(labels).to(cuda)
+    outs = []
+    for kernels in (soft.KERNELS, soft.PLAIN):
+        occ = (lt != 0).float().requires_grad_()
+        out = soft.multilabel_edtsq(lt, occ, (6.0, 6.0, 30.0), True,
+                                    binary_occupancy=binocc, kernels=kernels)
+        (g,) = torch.autograd.grad(out.sum(), occ)
+        outs.append((out.detach(), g))
+    (out, g), (rout, rg) = outs
+    assert torch.equal(out, rout)
+    torch.testing.assert_close(g, rg, rtol=1e-6, atol=1e-6)
