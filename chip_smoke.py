@@ -4,15 +4,21 @@
 
 Builds the CUDA kernels from ``edt_tpu_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (K1 and K2 bit-exact, K3 and
-K4 within rtol=1e-5, atol=1e-5: the same sums in another order), and
-drives the port's two main paths at 128^3 and at the 512^3 ``bench.py``
-volume:
+K4 within rtol=1e-5, atol=1e-5: the same sums in another order; K5 and K6
+within the JAX package's tolerances for its softmin kernels), and drives
+the port's main paths:
 
-- slice 1, the forward multi-label EDT through the NumPy API (K1);
+- slice 1, the forward multi-label EDT through the NumPy API (K1), at
+  128^3 and at the 512^3 ``bench.py`` volume;
 - slice 2, ``bench.py``'s workload: the gradient of
   sum(multilabel_edtsq(labels, occupancy, (6, 6, 30), black_border=True,
   binary_occupancy=True)) w.r.t. the occupancy (K2, K3, K4), and the
-  general path (binary_occupancy=False).
+  general path (binary_occupancy=False), at 128^3 and 512^3;
+- slice 3, the softmin path at temperature > 0 (K5, K6): the soft
+  transforms at 128^3 against the plain path, ``benchmarks/run.py``'s
+  smooth training cell (soft_edtsq fwd+bwd at t = 0.3 on 256^3), and the
+  single-device trainers: DistanceFieldNet at 2 x 256^3 and UNet3D at
+  2 x 128^3.
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -38,6 +44,13 @@ FULL = 512
 SMALL = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+SMS = 132  # H100 SXM
+SFU_PER_CLOCK_SM = 16  # special-function (exp) results a clock an SM
+SOFT_FULL = 256  # benchmarks/run.py's smooth training cell
+SOFT_T = 0.3
+TRAIN_FULL = 256  # DistanceFieldNet's timed batch, 2 x 256^3
+TRAIN_SMALL = 128  # the trainers' KERNELS-vs-PLAIN step; UNet3D's timed batch
+UNET_SMALL = 64  # UNet3D's KERNELS-vs-PLAIN step
 
 
 def make_labels(rng, size):
@@ -94,12 +107,13 @@ class Exact:
 
 
 class Close(Exact):
-    """Comparisons within rtol, atol: gradients, whose sums the kernels
-    and their plain versions take in another order."""
+    """Comparisons within rtol and atol (plus atol_rel * max |ref|): the
+    same INF pattern, finite values close. For sums the kernels and their
+    plain versions take in another order, and for the softmin path."""
 
-    def __init__(self, rtol=1e-5, atol=1e-5):
+    def __init__(self, rtol=1e-5, atol=1e-5, atol_rel=0.0):
         super().__init__()
-        self.rtol, self.atol = rtol, atol
+        self.rtol, self.atol, self.atol_rel = rtol, atol, atol_rel
 
     def check(self, name, got, ref):
         got = torch.as_tensor(got).to("cpu")
@@ -108,10 +122,24 @@ class Close(Exact):
             self.failures.append(f"{name}: shape {tuple(got.shape)} vs "
                                  f"{tuple(ref.shape)}")
             return
-        err = float((got - ref).abs().max()) if ref.numel() else 0.0
+        fin = torch.isfinite(ref)
+        if not torch.equal(torch.isfinite(got), fin):
+            self.failures.append(f"{name}: INF pattern differs")
+            return
+        got, ref = got[fin], ref[fin]
+        if not ref.numel():
+            return
+        err = float((got - ref).abs().max())
         self.max_abs_err = max(self.max_abs_err, err)
-        if not torch.allclose(got, ref, rtol=self.rtol, atol=self.atol):
-            self.failures.append(f"{name}: max |diff| {err}")
+        atol = self.atol + self.atol_rel * float(ref.abs().max())
+        if not torch.allclose(got, ref, rtol=self.rtol, atol=atol):
+            self.failures.append(f"{name}: max |diff| {err} (atol {atol:.3g})")
+
+    def check_sum(self, name, got, ref, rtol):
+        """A scalar within rtol: sum(g * e) against the plain version's."""
+        got, ref = float(got), float(ref)
+        if not abs(got - ref) <= rtol * abs(ref):
+            self.failures.append(f"{name}: {got} vs {ref}")
 
 
 def row_radii(f, bound, w2):
@@ -179,6 +207,62 @@ def k1_bound_ms(f, ss, se, w2, black_border, masked):
     nbytes = f.numel() * (16 if masked else 8)
     return bound_ms(nbytes, 4 * k1_candidates(f, ss, se, w2, black_border,
                                               masked))
+
+
+def sfu_exps_per_s():
+    """The card's exp rate: 16 special-function results a clock on each of
+    132 SMs at the SM clock ``nvidia-smi`` reports as its maximum."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    mhz = float(smi.stdout.split()[0])
+    print(f"SM clock (clocks.max.sm): {mhz:.0f} MHz; exp rate "
+          f"{SFU_PER_CLOCK_SM * SMS * mhz * 1e6:.4g}/s")
+    return SFU_PER_CLOCK_SM * SMS * mhz * 1e6
+
+
+def bound_exp_ms(nbytes, ops, exps, exps_per_s):
+    """Least time on the card: HBM bytes, f32 operations, or exps at the
+    special-function rate, the largest. Returns (ms, bound_by, term)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32 operations": ops / F32_FLOPS_PER_S * 1e3,
+             "exps": exps / exps_per_s * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], ("bytes" if term == "bytes" else "operations"), term
+
+
+def window_terms(gap, w2):
+    """Terms of the windows |k| <= r with w2 k^2 <= gap (one window a
+    position, clipped to the row; a NaN or negative gap has none): what
+    K5 and K6 sum on these inputs."""
+    n = gap.shape[-1]
+    i = torch.arange(n, device=gap.device)
+    r = torch.floor(torch.sqrt(gap.clamp(min=0.0) / w2)).clamp(max=n)
+    r = torch.where(gap >= 0, r, -1.0).to(torch.int64)
+    cnt = torch.clamp(i + r, max=n - 1) - torch.clamp(i - r, min=0) + 1
+    return int(torch.where(r >= 0, cnt, 0).sum())
+
+
+def k5_work(f, w2, t):
+    """(hard-min candidates, exp terms) of K5 on these inputs."""
+    from edt_tpu_torch.ops import argmin, core
+
+    minf = f.amin(dim=1, keepdim=True)
+    dmin, _ = argmin.minplus_argmin(f, w2)
+    cut = core.f32(30.0 * t)
+    return window_terms(dmin - minf, w2), window_terms(dmin + cut - minf, w2)
+
+
+def k6_work(f, d, w2, t):
+    """Exp terms of K6 on these inputs: df's over the sources, e's over
+    the targets."""
+    from edt_tpu_torch.ops import core
+
+    cut = core.f32(30.0 * t)
+    minf = f.amin(dim=1, keepdim=True)
+    maxd = d.amax(dim=1, keepdim=True)
+    return (window_terms(maxd + cut - f, w2)
+            + window_terms(d + cut - minf, w2))
 
 
 def profile(fn, label, top=8, by_op=False):
@@ -711,6 +795,417 @@ def phase_soft_full(exact, close, close3, close4, kernels, dev):
             "library_ms": lib})
 
 
+# ---------------- slice 3: the softmin path (K5, K6) and the trainers
+
+
+def softmin_rows(rng, rows, n, w2):
+    """Rows of the regimes K5 and K6 have: random heights with sources, a
+    plateau over sparse sources (long radii beside short ones), one all-INF
+    row last."""
+    q = max(1, rows // 4)
+    f = (rng.random((rows, n)) * 25 * w2).astype(np.float32)
+    f[rng.random((rows, n)) > 0.6] = 0.0
+    if n >= 300:
+        f[:q, 100:260] = 500.0 * w2
+        f[:q, ::70] = 0.0
+    f[-1] = np.inf
+    return f
+
+
+def check_k6(close6, name, f, d, g, w2, t):
+    """K6 against its plain version on the same (f, d, g): df, and
+    sum(g * e) within rtol=1e-3."""
+    from edt_tpu_torch.ops import softmin
+
+    df, e = softmin.softmin_grad(f, d, g, w2, t)
+    rdf, re = softmin.softmin_grad_plain(f, d, g, w2, t)
+    close6.check(f"K6 df {name}", df, rdf)
+    close6.check_sum(f"K6 sum(g e) {name}", (g * e).sum(), (g * re).sum(),
+                     1e-3)
+
+
+def phase_softmin_kernel_cases(close5, close6, dev):
+    """K5 and K6 against their plain versions over their regimes, with the
+    JAX package's tolerances for its softmin kernels (close5, close6)."""
+    from edt_tpu_torch.ops import softmin
+
+    rng = np.random.default_rng(17)
+    n_cases = 0
+    for n in (1, 127, 300, 2049):
+        rows = 48 if n <= 512 else 12
+        for w2 in (1.0, 36.0, 900.0):
+            for t in (0.01, 0.3, 1.0):
+                name = f"n={n} w2={w2} t={t}"
+                ft = torch.from_numpy(softmin_rows(rng, rows, n, w2)).to(dev)
+                rd = softmin.softmin_plain(ft, w2, t)
+                close5.check(f"K5 {name}", softmin.softmin(ft, w2, t), rd)
+                # K6 on the finite rows: an all-INF row is NaN in the plain
+                # version (INF - INF), as in the JAX package
+                g = torch.from_numpy(rng.uniform(-1, 1, (rows - 1, n))
+                                     .astype(np.float32)).to(dev)
+                check_k6(close6, name, ft[:-1], rd[:-1], g, w2, t)
+                n_cases += 1
+    # one source a row, INF elsewhere: every window spans the row, and
+    # d = w2 k^2, df = sum(g) at the source, e = k^2, exactly
+    for n in (2049, softmin.GRAD_MAX_AXIS, softmin.MAX_AXIS):
+        rows = 4 if n <= 2049 else 2
+        src = rng.integers(0, n, size=rows)
+        ft = torch.full((rows, n), float("inf"), device=dev)
+        ft[torch.arange(rows), torch.from_numpy(src)] = 0.0
+        k = (torch.arange(n, device=dev)[None, :]
+             - torch.from_numpy(src).to(dev)[:, None]).to(torch.float32)
+        d = softmin.softmin(ft, 36.0, 0.3)
+        close5.check(f"K5 one source n={n}", d, 36.0 * (k * k))
+        if n > softmin.GRAD_MAX_AXIS:
+            continue
+        g = torch.from_numpy(rng.uniform(-1, 1, (rows, n))
+                             .astype(np.float32)).to(dev)
+        df, e = softmin.softmin_grad(ft, d, g, 36.0, 0.3)
+        ref_df = torch.zeros_like(g)
+        ref_df[torch.arange(rows), torch.from_numpy(src)] = g.sum(dim=1)
+        close6.check(f"K6 df one source n={n}", df, ref_df)
+        close6.check(f"K6 e one source n={n}", e, k * k)
+    for fn, n in ((lambda x: softmin.softmin(x, 1.0, 0.3),
+                   softmin.MAX_AXIS + 1),
+                  (lambda x: softmin.softmin_grad(x, x, x, 1.0, 0.3),
+                   softmin.GRAD_MAX_AXIS + 1)):
+        try:
+            fn(torch.zeros((1, n), device=dev))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"rows of {n} did not raise")
+    close5.raise_if_failed("K5 vs plain")
+    close6.raise_if_failed("K6 vs plain")
+    print(f"K5-K6 vs plain: {n_cases} cases and 3 one-source rows up to "
+          f"n={softmin.MAX_AXIS}; K5 within rtol={close5.rtol}, "
+          f"atol={close5.atol}: max abs err {close5.max_abs_err}; K6 df "
+          f"within rtol={close6.rtol}, atol={close6.atol_rel} max|df|, "
+          f"sum(g e) within rtol=1e-3: max abs err {close6.max_abs_err}")
+
+
+def soft_launches():
+    from edt_tpu_torch.ops import softmin
+
+    return softmin.launches, softmin.grad_launches
+
+
+def zero_soft_launches():
+    from edt_tpu_torch.ops import softmin
+
+    softmin.launches = 0
+    softmin.grad_launches = 0
+
+
+def value_and_grad(fn, occ, kernels):
+    """fn(occ, kernels) and the gradient of its sum w.r.t. occ."""
+    occ = occ.detach().requires_grad_()
+    out = fn(occ, kernels)
+    (g,) = torch.autograd.grad(out.sum(), occ)
+    return out.detach(), g
+
+
+def phase_softmin_small(close_f, close_g, dev):
+    """The soft transforms at t > 0 at 128^3, forward and gradient,
+    through the kernels against the plain path; launch counts."""
+    from edt_tpu_torch.models import soft
+
+    labels = make_labels(np.random.default_rng(3), SMALL)
+    lt = torch.from_numpy(labels.view(np.int32)).to(dev)
+    occ = (lt != 0).to(torch.float32)
+    cases = (
+        ("soft_edtsq t=0.3 (1, 1, 1)", (3, 3), lambda o, k: soft.soft_edtsq(
+            o, (1.0, 1.0, 1.0), True, temperature=0.3, kernels=k)),
+        ("multilabel_edtsq t=0.5 (6, 6, 30)", (3, 3),
+         lambda o, k: soft.multilabel_edtsq(lt, o, ANISO, True,
+                                            temperature=0.5, kernels=k)),
+        ("soft_sdfsq t=0.3 (1, 1, 1)", (6, 6), lambda o, k: soft.soft_sdfsq(
+            o, (1.0, 1.0, 1.0), True, temperature=0.3, kernels=k)),
+    )
+    for name, want, fn in cases:
+        zero_soft_launches()
+        out, g = value_and_grad(fn, occ, soft.KERNELS)
+        counts = soft_launches()
+        ref, rg = value_and_grad(fn, occ, soft.PLAIN)
+        close_f.check(f"{SMALL}^3 {name} forward", out, ref)
+        close_g.check(f"{SMALL}^3 {name} gradient", g, rg)
+        if not (torch.isfinite(out).all() and torch.isfinite(g).all()):
+            raise AssertionError(f"{SMALL}^3 {name}: non-finite values")
+        if counts != want:
+            raise AssertionError(f"{name}: launches (K5, K6) {counts}, "
+                                 f"expected {want}")
+        print(f"  {SMALL}^3 {name}: forward max abs err "
+              f"{float((out - ref).abs().max()):.3g} (max |d| "
+              f"{float(ref.abs().max()):.4g}), gradient max abs err "
+              f"{float((g - rg).abs().max()):.3g} (max |grad| "
+              f"{float(rg.abs().max()):.4g}); launches (K5, K6) {counts}")
+    # reported, not held to K6's tolerance: at (6, 6, 30) the background
+    # transform of soft_sdfsq reaches d of millions, where the f32 weights
+    # exp((d - cost) / t) carry ulp(d) / t of round-off in either path
+    fn = lambda o, k: soft.soft_sdfsq(o, ANISO, True, temperature=0.3,  # noqa: E731
+                                      kernels=k)
+    (out, g), (ref, rg) = (value_and_grad(fn, occ, k)
+                           for k in (soft.KERNELS, soft.PLAIN))
+    big = rg.abs() > 1e-4 * rg.abs().max()
+    print(f"  {SMALL}^3 soft_sdfsq t=0.3 (6, 6, 30), reported only: forward "
+          f"max rel err {float(((out - ref) / ref.abs().clamp(min=1)).abs().max()):.3g}, "
+          f"gradient max rel err {float(((g - rg) / rg)[big].abs().max()):.3g} "
+          f"where |grad| > 1e-4 max|grad|")
+    close_f.raise_if_failed(f"softmin slice at {SMALL}^3")
+    close_g.raise_if_failed(f"softmin slice at {SMALL}^3")
+    print(f"softmin slice at {SMALL}^3: forward within rtol={close_f.rtol}, "
+          f"atol={close_f.atol}; gradients within rtol={close_g.rtol}, "
+          f"atol={close_g.atol_rel} max|grad| of the plain path")
+
+
+def phase_softmin_full(close5, close6, kernels, dev):
+    """benchmarks/run.py's smooth training cell: soft_edtsq fwd+bwd at
+    t = 0.3 on 256^3 random occupancy; launch counts, times, each kernel
+    alone at its pass shape, and a profile."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import softmin
+
+    S = SOFT_FULL
+    occ = torch.from_numpy((np.random.default_rng(42).random((S,) * 3) > 0.5)
+                           .astype(np.float32)).to(dev)
+    barrier = float(3 * S ** 2)
+    fn = lambda o, k: soft.soft_edtsq(  # noqa: E731
+        o, (1.0, 1.0, 1.0), True, barrier, SOFT_T, kernels=k)
+    step = lambda: value_and_grad(fn, occ, soft.KERNELS)  # noqa: E731
+
+    # the main path, counted
+    zero_soft_launches()
+    out, g = step()
+    counts = soft_launches()
+    if counts != (3, 3):
+        raise AssertionError(f"{S}^3 softmin fwd+bwd launches (K5, K6) "
+                             f"{counts}, expected (3, 3)")
+    if not (torch.isfinite(out).all() and torch.isfinite(g).all()):
+        raise AssertionError(f"{S}^3 softmin fwd+bwd: non-finite values")
+    del out, g
+    torch.cuda.reset_peak_memory_stats()
+    ms, all_ms = cuda_ms(step, reps=7)
+    peak = torch.cuda.max_memory_allocated()
+    vox = S ** 3
+    print(f"{S}^3 soft_edtsq t={SOFT_T} fwd+bwd: {ms:.2f} ms median of "
+          f"{[round(x, 2) for x in all_ms]}, {vox / ms / 1e3:.1f} Mvox/s; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+
+    # each kernel alone at the second pass (axis 1), rows (S^2, S)
+    with torch.no_grad():
+        step0 = soft._soft_pass(barrier * occ, 1.0, True, SOFT_T)
+        f1 = step0.movedim(1, -1).contiguous().reshape(-1, S)
+        del step0
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gk = torch.rand(f1.shape, generator=gen, device=dev) * 2 - 1
+    k5 = lambda: softmin.softmin(f1, 1.0, SOFT_T)  # noqa: E731
+    k5_plain = lambda: softmin.softmin_plain(f1, 1.0, SOFT_T)  # noqa: E731
+    d1 = k5_plain()
+    close5.check(f"{S}^3 K5 pass", k5(), d1)
+    check_k6(close6, f"{S}^3 pass", f1, d1, gk, 1.0, SOFT_T)
+    close5.raise_if_failed(f"K5 at {S}^3")
+    close6.raise_if_failed(f"K6 at {S}^3")
+    k6 = lambda: softmin.softmin_grad(f1, d1, gk, 1.0, SOFT_T)  # noqa: E731
+    k6_plain = lambda: softmin.softmin_grad_plain(f1, d1, gk, 1.0, SOFT_T)  # noqa: E731
+    k5_ms, _ = cuda_ms(k5, reps=20, warmup=2)
+    k5_plain_ms, _ = cuda_ms(k5_plain, reps=3)
+    k6_ms, _ = cuda_ms(k6, reps=20, warmup=2)
+    k6_plain_ms, _ = cuda_ms(k6_plain, reps=3)
+    exps_per_s = sfu_exps_per_s()
+    hard, terms5 = k5_work(f1, 1.0, SOFT_T)
+    terms6 = k6_work(f1, d1, 1.0, SOFT_T)
+    # f32 operations: 4 a hard-min candidate (square, scale, add, min),
+    # 6 an exp term besides its exp (square, scale, add, sub, scale, sum),
+    # one more in K6 (the product with g or k^2)
+    k5_bound = bound_exp_ms(8 * f1.numel(), 4 * hard + 6 * terms5, terms5,
+                            exps_per_s)
+    k6_bound = bound_exp_ms(20 * f1.numel(), 7 * terms6, terms6, exps_per_s)
+    vox1 = f1.numel()
+    for name, ms_, pms, (bms, by, term), work in (
+            ("K5", k5_ms, k5_plain_ms, k5_bound,
+             f"{hard / vox1:.1f} hard-min candidates and {terms5 / vox1:.1f}"
+             " exp terms a voxel"),
+            ("K6", k6_ms, k6_plain_ms, k6_bound,
+             f"{terms6 / vox1:.1f} exp terms a voxel")):
+        print(f"{name} one pass {tuple(f1.shape)}: {ms_:.3f} ms, plain "
+              f"{pms:.1f} ms, bound {bms:.3f} ms ({by}: {term}), {work}; "
+              "no one-call library equivalent")
+    del f1, d1, gk
+
+    profile(step, f"{S}^3 soft_edtsq t={SOFT_T} fwd+bwd", top=12, by_op=True)
+
+    rep = "edt_tpu/ops/pallas_kernels.py:"
+    for name, line, n, err, ms_, pms, (bms, by, _) in (
+            ("softmin", 2103, counts[0], close5.max_abs_err, k5_ms,
+             k5_plain_ms, k5_bound),
+            ("softmin_grad", 2346, counts[1], close6.max_abs_err, k6_ms,
+             k6_plain_ms, k6_bound)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "edt_tpu_torch/csrc/softmin.cu",
+            "replaces": rep + str(line), "launches": n, "max_abs_err": err,
+            "ms": ms_, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None})
+
+
+def train_steps(step, feats, target, n, label):
+    """n steps of ``step``; each step launches K5 and K6 three times.
+    Returns the losses and the step times in ms (CUDA events)."""
+    losses, times = [], []
+    for i in range(n):
+        zero_soft_launches()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(feats, target)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(float(loss))
+        if soft_launches() != (3, 3):
+            raise AssertionError(f"{label} step {i}: launches (K5, K6) "
+                                 f"{soft_launches()}, expected (3, 3)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    return losses, times
+
+
+def check_kernels_vs_plain_step(close, make, make_step, feats, target, label):
+    """One training step from the same parameters through the kernels and
+    through the plain path: the same loss (rtol 1e-4), the same gradients
+    (rtol 1e-4, atol 1e-4 max|grad|, K6's tolerance) and the same
+    parameters after the update (rtol 1e-4, atol 1e-2 lr: Adam's first
+    step moves each coordinate by lr g / (|g| + eps), so a coordinate
+    whose gradient is near eps moves by another fraction of lr)."""
+    from edt_tpu_torch.models import soft
+
+    results = []
+    for kernels in (soft.KERNELS, soft.PLAIN):
+        model, step = make_step(make(), kernels)
+        zero_soft_launches()
+        loss = float(step(feats, target))
+        results.append((loss, soft_launches(), {
+            k: (p.detach().clone(), p.grad.detach().clone())
+            for k, p in model.named_parameters()}))
+    (loss, counts, params), (rloss, _, rparams) = results
+    if counts != (3, 3):
+        raise AssertionError(f"{label}: launches (K5, K6) {counts}")
+    grads = Close(1e-4, atol=0.0, atol_rel=1e-4)
+    if not abs(loss - rloss) <= 1e-4 * abs(rloss):
+        close.failures.append(f"{label} loss {loss} vs plain {rloss}")
+    for k, (p, g) in params.items():
+        grads.check(f"{label} grad {k}", g, rparams[k][1])
+        close.check(f"{label} {k}", p, rparams[k][0])
+    grads.raise_if_failed(label)
+    close.raise_if_failed(label)
+    print(f"{label}: loss {loss} (plain {rloss}); gradients max abs err "
+          f"{grads.max_abs_err}; parameters within rtol={close.rtol}, "
+          f"atol={close.atol}: max abs err {close.max_abs_err}")
+
+
+def phase_distance_net(close, dev):
+    """DistanceFieldNet at the widths of examples/train_distance_net.py:
+    one step through the kernels against the plain path at 2 x 128^3, and
+    5 timed steps at 2 x 256^3 on one synthetic batch."""
+    from edt_tpu_torch.models import distance_net, soft
+
+    def make():
+        gen = torch.Generator().manual_seed(0)
+        return distance_net.DistanceFieldNet(8, 32, generator=gen, device=dev)
+
+    def make_step(model, kernels, size):
+        opt = torch.optim.Adam(model.parameters(), lr=3e-3,
+                               betas=(0.9, 0.999), eps=1e-8)
+        return model, distance_net.make_train_step(
+            model, opt, temperature=SOFT_T, barrier=size * size / 2,
+            kernels=kernels)
+
+    S = TRAIN_SMALL
+    feats, target = distance_net.synthetic_batch(
+        np.random.default_rng(0), 2, (S,) * 3, 8, device=dev)
+    check_kernels_vs_plain_step(
+        close, make, lambda m, k: make_step(m, k, S), feats, target,
+        f"DistanceFieldNet 2 x {S}^3 step")
+
+    S = TRAIN_FULL
+    feats, target = distance_net.synthetic_batch(
+        np.random.default_rng(1), 2, (S,) * 3, 8, device=dev)
+    model, step = make_step(make(), soft.KERNELS, S)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = train_steps(step, feats, target, 5,
+                                f"DistanceFieldNet 2 x {S}^3")
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"DistanceFieldNet: loss did not drop {losses}")
+    print(f"DistanceFieldNet 2 x {S}^3 (c_in 8, hidden 32, Adam 3e-3, "
+          f"t={SOFT_T}, barrier {S * S / 2:g}): step {statistics.median(times[1:]):.2f} "
+          f"ms median after the first, {[round(x, 2) for x in times]}; losses "
+          f"{losses}; peak device memory {peak / 2**30:.2f} GiB")
+    profile(lambda: step(feats, target), f"DistanceFieldNet 2 x {S}^3 step",
+            top=12, by_op=True)
+    # K5's work on the first pass of this step: the untrained head's
+    # sigmoid occupancy against the random cell's two-valued one
+    with torch.no_grad():
+        f0 = (S * S / 2) * torch.sigmoid(model(feats)).reshape(-1, S)
+        hard, terms = k5_work(f0, 1.0, SOFT_T)
+    print(f"DistanceFieldNet first pass {tuple(f0.shape)}: K5 scans "
+          f"{hard / f0.numel():.1f} hard-min candidates and "
+          f"{terms / f0.numel():.1f} exp terms a voxel")
+
+
+def phase_unet3d(close, dev):
+    """UNet3D (c_in 4, c0 8, levels 2): one step through the kernels
+    against the plain path at 2 x 64^3, 3 timed steps at 2 x 128^3, and a
+    bf16 forward."""
+    from edt_tpu_torch.models import distance_net, soft, unet3d
+
+    def make():
+        gen = torch.Generator().manual_seed(0)
+        return unet3d.UNet3D(4, 8, 2, generator=gen, device=dev)
+
+    def make_step(model, kernels, size):
+        opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+        return model, unet3d.make_train_step(
+            model, opt, temperature=SOFT_T, barrier=size * size / 2,
+            kernels=kernels)
+
+    S = UNET_SMALL
+    feats, target = distance_net.synthetic_batch(
+        np.random.default_rng(2), 2, (S,) * 3, 4, device=dev)
+    check_kernels_vs_plain_step(
+        close, make, lambda m, k: make_step(m, k, S), feats, target,
+        f"UNet3D 2 x {S}^3 step")
+
+    S = TRAIN_SMALL
+    feats, target = distance_net.synthetic_batch(
+        np.random.default_rng(3), 2, (S,) * 3, 4, device=dev)
+    model, step = make_step(make(), soft.KERNELS, S)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = train_steps(step, feats, target, 3, f"UNet3D 2 x {S}^3")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        bf16 = unet3d.loss_fn(model, feats, target, temperature=SOFT_T,
+                              barrier=S * S / 2,
+                              compute_dtype=torch.bfloat16)
+    if not torch.isfinite(bf16):
+        raise AssertionError(f"UNet3D bf16 forward: loss {float(bf16)}")
+    print(f"UNet3D 2 x {S}^3 (c_in 4, c0 8, levels 2, Adam 3e-3, "
+          f"t={SOFT_T}): step {statistics.median(times[1:]):.2f} ms median "
+          f"after the first, {[round(x, 2) for x in times]}; losses {losses}; "
+          f"bf16 forward loss {float(bf16)}; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    profile(lambda: step(feats, target), f"UNet3D 2 x {S}^3 step", top=12,
+            by_op=True)
+    # a yardstick, not the cell: the same steps with TF32 convolutions
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_ms, _ = cuda_ms(lambda: step(feats, target), reps=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"UNet3D 2 x {S}^3 step with TF32 convolutions: {tf32_ms:.2f} ms "
+          "median of 3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -726,10 +1221,20 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     dev = torch.device("cuda")
+    # the trainers' f32 matmuls and convolutions in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     exact = Exact()  # K1 and slice 1
     exact2 = Exact()  # K2 and the forward of slice 2
     close = Close()  # the gradients of slice 2
     close3, close4 = Close(), Close()  # K3, K4
+    # K5 and K6: the JAX package's tolerances for its softmin kernels
+    close5 = Close(1e-5, atol=1e-4)
+    close6 = Close(1e-4, atol=0.0, atol_rel=1e-4)
+    # the softmin slice: forward as K5, gradients as K6's df
+    soft_f = Close(1e-5, atol=1e-4)
+    soft_g = Close(1e-4, atol=0.0, atol_rel=1e-4)
+    close_train = Close(rtol=1e-4, atol=3e-5)  # parameters, 1e-2 lr
     kernels = []
     failed = []
     t0 = time.perf_counter()
@@ -743,7 +1248,16 @@ def main() -> int:
                lambda: phase_soft_small(exact2, close, dev)),
               ("soft slice 512^3",
                lambda: phase_soft_full(exact2, close, close3, close4, kernels,
-                                       dev))]
+                                       dev)),
+              ("K5-K6 vs plain",
+               lambda: phase_softmin_kernel_cases(close5, close6, dev)),
+              ("softmin slice 128^3",
+               lambda: phase_softmin_small(soft_f, soft_g, dev)),
+              ("softmin 256^3",
+               lambda: phase_softmin_full(close5, close6, kernels, dev)),
+              ("DistanceFieldNet trainer",
+               lambda: phase_distance_net(close_train, dev)),
+              ("UNet3D trainer", lambda: phase_unet3d(close_train, dev))]
     for name, fn in phases:
         t = time.perf_counter()
         try:

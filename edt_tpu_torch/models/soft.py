@@ -1,5 +1,5 @@
-"""Differentiable squared Euclidean distance transforms at temperature 0
-(counterpart of ``edt_tpu.models.soft``).
+"""Differentiable squared Euclidean distance transforms (counterpart of
+``edt_tpu.models.soft``).
 
 The transform is posed on a continuous height field h:
 
@@ -16,12 +16,18 @@ winning source:
 - the first pass over a two-valued field (``binary_heights``) runs the
   closed form of nearest-zero scans forward and K4 backward.
 
+At temperature t > 0 each pass is the softmin -t log sum_j exp(-cost/t),
+smooth everywhere: K5 (``ops.softmin``) forward, keeping (f, d), and K6
+backward, which recomputes the softmax weights from them. Walls (black
+borders, label boundaries) blend in with -t logaddexp(-d/t, -walls/t), and
+``binary_heights`` has no effect.
+
 ``multilabel_edtsq`` is the wall-faithful multi-label form: labels define
 the label-boundary walls (integer wall counts, clamped in with ties to the
-candidate), and its forward equals the hard ``edtsq`` where that is
-finite. Temperature > 0 (softmin, kernels K5 and K6) is not ported yet and
-raises. Every forward value is bit-identical to the JAX package; the
-gradients agree up to the order of their sums.
+candidate at t = 0), and its forward at t = 0 equals the hard ``edtsq``
+where that is finite. At t = 0 every forward value is bit-identical to the
+JAX package and the gradients agree up to the order of their sums; at
+t > 0 both agree to f32 round-off.
 
 Entry points take torch tensors, which stay on their device, or NumPy
 arrays, which go to ``device=`` (default CUDA; with no card and no
@@ -38,6 +44,7 @@ import torch
 
 from edt_tpu_torch import api
 from edt_tpu_torch.ops import argmin, core, grad
+from edt_tpu_torch.ops import softmin as soft_ops
 from edt_tpu_torch.ops.wall_sentinels import WALL_SENT16, WALL_SENT32
 
 F32 = torch.float32
@@ -45,22 +52,24 @@ INF = float("inf")
 
 
 class Kernels(NamedTuple):
-    """The kernels the passes call: K2 forward, K3 and K4 backward."""
+    """The kernels the passes call: at t = 0 K2 forward, K3 and K4
+    backward; at t > 0 K5 forward, K6 backward."""
 
     forward: Callable = argmin.minplus_argmin  # K2
     gather: Callable = grad.minplus_grad  # K3
     scan: Callable = grad.binary_grad_scan  # K4
+    softmin: Callable = soft_ops.softmin  # K5
+    softmin_grad: Callable = soft_ops.softmin_grad  # K6
 
 
 KERNELS = Kernels()
 PLAIN = Kernels(argmin.minplus_argmin_plain, grad.minplus_grad_plain,
-                grad.binary_grad_scan_plain)
+                grad.binary_grad_scan_plain, soft_ops.softmin_plain,
+                soft_ops.softmin_grad_plain)
 
-def _check_temperature(temperature):
-    if temperature and temperature > 0.0:
-        raise NotImplementedError(
-            "temperature > 0 (softmin) is not ported yet: it needs the K5 "
-            "and K6 kernels (ROADMAP.md, Queue B, K5/K6)")
+
+def _soft(temperature) -> bool:
+    return bool(temperature) and temperature > 0.0
 
 
 # ---------------- devices and inputs ----------------
@@ -212,6 +221,31 @@ class _MinplusHardWalled(torch.autograd.Function):
         return df, None, None, None, None
 
 
+class _MinplusSoft(torch.autograd.Function):
+    """Softmin-plus at temperature t > 0 with O(rows * n) residuals (the
+    JAX package's ``_make_minplus_soft``): K5 forward keeps (f, d), K6
+    backward recomputes the softmax weights from them."""
+
+    @staticmethod
+    def forward(ctx, f, w2, t, kernels):
+        d = kernels.softmin(f, w2, t)
+        ctx.save_for_backward(f, d)
+        ctx.w2, ctx.t, ctx.kernels = w2, t, kernels
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        f, d = ctx.saved_tensors
+        df, _ = ctx.kernels.softmin_grad(f, d, g.contiguous(), ctx.w2, ctx.t)
+        return df, None, None, None
+
+
+def _blend_walls(d, walls, temperature):
+    """The soft wall clamp: -t logaddexp(-d/t, -walls/t)."""
+    t = core.f32(temperature)
+    return -t * torch.logaddexp(-d / t, -walls / t)
+
+
 # ---------------- passes and composition ----------------
 
 
@@ -220,25 +254,46 @@ def _pass_order(anis):
     return sorted(range(anis.size), key=lambda a: (float(anis[a]), -a))
 
 
-def _soft_pass(f, w, black_border, binary_heights=False, kernels=KERNELS):
-    """One differentiable min-plus pass along the last axis of f, at
-    temperature 0."""
+def _soft_pass(f, w, black_border, temperature=0.0, binary_heights=False,
+               kernels=KERNELS):
+    """One differentiable min-plus pass along the last axis of f."""
     n = f.shape[-1]
     if f.numel() == 0:
         return f
     w = core.f32(w)
     w2 = core.f32(w * w)
-    d = _MinplusHard.apply(f.reshape(-1, n), w2, bool(binary_heights),
-                           kernels).reshape(f.shape)
+    f2 = f.reshape(-1, n)
+    if _soft(temperature):
+        d = _MinplusSoft.apply(f2, w2, core.f32(temperature), kernels)
+    else:
+        d = _MinplusHard.apply(f2, w2, bool(binary_heights), kernels)
+    d = d.reshape(f.shape)
     if black_border:
         idx = torch.arange(n, dtype=F32, device=f.device)
         lo = idx + 1.0
         hi = n - idx
         walls = torch.minimum(w2 * (lo * lo), w2 * (hi * hi))
-        # ties go to the min-plus candidate, so a source exactly at the
-        # wall distance keeps its gradient
-        d = torch.where(d <= walls, d, walls)
+        if _soft(temperature):
+            d = _blend_walls(d, walls, temperature)
+        else:
+            # ties go to the min-plus candidate, so a source exactly at the
+            # wall distance keeps its gradient
+            d = torch.where(d <= walls, d, walls)
     return d
+
+
+def _passes(f, anis, black_border, temperature, binary_heights, kernels,
+            lead=0):
+    """The passes of ``edtsq_from_heights`` over the axes after the first
+    ``lead`` of f, in ascending-pitch order; the leading axes ride in the
+    rows of every pass."""
+    for step, ax in enumerate(_pass_order(anis)):
+        a = ax + lead
+        f = _soft_pass(f.movedim(a, -1).contiguous(), float(anis[ax]),
+                       black_border, temperature,
+                       binary_heights=binary_heights and step == 0,
+                       kernels=kernels).movedim(-1, a)
+    return f
 
 
 def edtsq_from_heights(h, anisotropy, black_border=False, temperature=0.0,
@@ -247,19 +302,15 @@ def edtsq_from_heights(h, anisotropy, black_border=False, temperature=0.0,
 
     h: heights, 0 at sources and +barrier at solid foreground. Returns the
     squared distances with dd/dh defined everywhere (a subgradient at
-    ties). binary_heights: the caller's promise that h takes exactly two
-    values {0, B}; the first pass then runs the closed form with the same
-    values, argmins and gradients (silently wrong otherwise).
+    ties at temperature 0). temperature > 0 runs the softmin passes.
+    binary_heights: the caller's promise that h takes exactly two values
+    {0, B}; at temperature 0 the first pass then runs the closed form with
+    the same values, argmins and gradients (silently wrong otherwise).
     """
-    _check_temperature(temperature)
     f = _as_tensor(h, _resolve_device([h], device)).to(F32)
     anis = np.asarray(anisotropy, np.float32).reshape(f.dim())
-    for step, ax in enumerate(_pass_order(anis)):
-        f = _soft_pass(f.movedim(ax, -1).contiguous(), float(anis[ax]),
-                       black_border,
-                       binary_heights=binary_heights and step == 0,
-                       kernels=kernels).movedim(-1, ax)
-    return f
+    return _passes(f, anis, black_border, temperature, binary_heights,
+                   kernels)
 
 
 def default_barrier(shape, anisotropy) -> float:
@@ -278,8 +329,8 @@ def soft_edtsq(occupancy, anisotropy, black_border=False, barrier=None,
                kernels=KERNELS):
     """Squared EDT of a soft occupancy map (1 = foreground, 0 =
     background), differentiable w.r.t. occupancy. binary_occupancy
-    promises values in {0, 1}: the first pass then runs the closed form."""
-    _check_temperature(temperature)
+    promises values in {0, 1}: at temperature 0 the first pass then runs
+    the closed form."""
     dev = _resolve_device([occupancy, barrier], device)
     occ = _as_tensor(occupancy, dev)
     if barrier is None:
@@ -290,10 +341,23 @@ def soft_edtsq(occupancy, anisotropy, black_border=False, barrier=None,
                               kernels=kernels)
 
 
+def _soft_edtsq_batch(occupancy, anisotropy, black_border=False,
+                      barrier=None, temperature=0.0, kernels=KERNELS):
+    """``soft_edtsq`` of every volume of a (B, *spatial) tensor, as
+    ``jax.vmap`` runs it in the trainers: the batch rides in the rows of
+    every pass (one launch a pass), the passes run along the spatial axes
+    only, and the default barrier comes from the spatial shape."""
+    spatial = tuple(occupancy.shape[1:])
+    anis = np.asarray(anisotropy, np.float32).reshape(len(spatial))
+    if barrier is None:
+        barrier = default_barrier(spatial, anis)
+    return _passes(_heights(barrier, occupancy), anis, black_border,
+                   temperature, False, kernels, lead=1)
+
+
 def soft_sdfsq(occupancy, anisotropy, black_border=False, barrier=None,
                temperature=0.0, *, device=None, kernels=KERNELS):
     """Differentiable signed squared distance: d(occ) - d(1 - occ)."""
-    _check_temperature(temperature)
     dev = _resolve_device([occupancy, barrier], device)
     occ = _as_tensor(occupancy, dev)
     fg = soft_edtsq(occ, anisotropy, black_border, barrier, temperature,
@@ -342,16 +406,21 @@ def wall_counts_for(labels, black_border=False, *, device=None):
     return tuple(_wall_counts(lab, ax, black_border) for ax in range(lab.dim()))
 
 
-def _multilabel_pass(f, wall_cnt_ax, w, binary_heights=False,
+def _multilabel_pass(f, wall_cnt_ax, w, temperature=0.0, binary_heights=False,
                      kernels=KERNELS):
-    """One differentiable multi-label min-plus pass along the last axis,
-    at temperature 0. The borders are all in the wall counts
-    (black_border edges are walls in ``_wall_counts``)."""
+    """One differentiable multi-label min-plus pass along the last axis.
+    The borders are all in the wall counts (black_border edges are walls
+    in ``_wall_counts``)."""
     n = f.shape[-1]
     if f.numel() == 0:
         return f
     w = core.f32(w)
     w2 = core.f32(w * w)
+    if _soft(temperature):
+        walls = argmin.walls_from_counts(wall_cnt_ax, w2)
+        d = _MinplusSoft.apply(f.reshape(-1, n), w2, core.f32(temperature),
+                               kernels).reshape(f.shape)
+        return _blend_walls(d, walls, temperature)
     d = _MinplusHardWalled.apply(f.reshape(-1, n), w2,
                                  wall_cnt_ax.reshape(-1, n),
                                  bool(binary_heights), kernels)
@@ -373,9 +442,9 @@ def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
     promise that occupancy is two-valued (default True when occupancy is
     omitted); the first pass then runs the closed form. wall_counts: the
     tuple of ``wall_counts_for(labels, black_border)``, from the SAME
-    labels and black_border.
+    labels and black_border. temperature > 0 runs the softmin passes, the
+    walls blended in with logaddexp; binary_occupancy then has no effect.
     """
-    _check_temperature(temperature)
     dev = _resolve_device([labels, occupancy, barrier, *(wall_counts or ())],
                           device)
     lab = _labels_tensor(labels, dev)
@@ -401,6 +470,7 @@ def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
             cnt = _wall_counts(lab, ax, black_border)
         f = _multilabel_pass(
             f.movedim(ax, -1).contiguous(), cnt.movedim(ax, -1).contiguous(),
-            float(anis[ax]), binary_heights=binary_occupancy and step == 0,
+            float(anis[ax]), temperature,
+            binary_heights=binary_occupancy and step == 0,
             kernels=kernels).movedim(-1, ax)
     return torch.where(lab == 0, 0.0, f)

@@ -129,7 +129,8 @@ def test_import_hygiene():
     """edt_tpu_torch imports neither jax nor anything of edt_tpu."""
     code = ("import sys, edt_tpu_torch, edt_tpu_torch.ops.compose, "
             "edt_tpu_torch.ops.argmin, edt_tpu_torch.ops.grad, "
-            "edt_tpu_torch.models; "
+            "edt_tpu_torch.ops.softmin, edt_tpu_torch.models, "
+            "edt_tpu_torch.models.distance_net, edt_tpu_torch.models.unet3d; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'edt_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from edt_tpu_torch.models import soft
-from edt_tpu_torch.ops import argmin, core, grad, minplus
+from edt_tpu_torch.ops import argmin, core, grad, minplus, softmin
 
 
 @pytest.fixture
@@ -139,3 +139,76 @@ def test_multilabel_edtsq_kernels_match_plain(cuda, binocc):
     (out, g), (rout, rg) = outs
     assert torch.equal(out, rout)
     torch.testing.assert_close(g, rg, rtol=1e-6, atol=1e-6)
+
+
+def _soft_rows(n, rng):
+    """Random heights with sources, a plateau over sparse sources (radii
+    of about 22 beside short ones), one all-INF row last."""
+    f = (rng.random((12, n)) * 50).astype(np.float32)
+    f[rng.random((12, n)) > 0.6] = 0.0
+    if n >= 300:
+        f[:4, 100:260] = 500.0
+        f[:4, ::70] = 0.0
+    f[-1] = np.inf
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 300, 2049])
+def test_softmin_kernels_match_plain(cuda, n):
+    """K5 and K6 within the JAX package's tolerances for its softmin
+    kernels: forward rtol=1e-5, atol=1e-4; df rtol=1e-4, atol=1e-4
+    max|df|; sum(g * e) rtol=1e-3."""
+    rng = np.random.default_rng(n)
+    ft = torch.from_numpy(_soft_rows(n, rng)).to(cuda)
+    for w2, t in ((1.0, 0.3), (36.0, 1.0), (900.0, 0.01)):
+        before = (softmin.launches, softmin.grad_launches)
+        d = softmin.softmin(ft * w2, w2, t)
+        rd = softmin.softmin_plain(ft * w2, w2, t)
+        assert torch.equal(torch.isinf(d), torch.isinf(rd))
+        fin = torch.isfinite(rd)
+        torch.testing.assert_close(d[fin], rd[fin], rtol=1e-5, atol=1e-4)
+        g = torch.from_numpy(rng.uniform(-1, 1, (11, n)).astype(np.float32)).to(cuda)
+        f1, d1 = (ft * w2)[:-1].contiguous(), rd[:-1].contiguous()
+        df, e = softmin.softmin_grad(f1, d1, g, w2, t)
+        rdf, re = softmin.softmin_grad_plain(f1, d1, g, w2, t)
+        assert (softmin.launches, softmin.grad_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+        torch.testing.assert_close(df, rdf, rtol=1e-4,
+                                   atol=1e-4 * float(rdf.abs().max()))
+        torch.testing.assert_close((g * e).sum(), (g * re).sum(), rtol=1e-3,
+                                   atol=0.0)
+
+
+@pytest.mark.cuda
+def test_softmin_wrappers_reject_bad_inputs(cuda):
+    f = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="temperature"):
+        softmin.softmin(f, 1.0, 0.0)
+    with pytest.raises(ValueError, match="exceed"):
+        softmin.softmin(torch.zeros(1, softmin.MAX_AXIS + 1, device=cuda),
+                        1.0, 0.3)
+    big = torch.zeros(1, softmin.GRAD_MAX_AXIS + 1, device=cuda)
+    with pytest.raises(ValueError, match="exceed"):
+        softmin.softmin_grad(big, big, big, 1.0, 0.3)
+    with pytest.raises(ValueError, match="g:"):
+        softmin.softmin_grad(f, f, f.double(), 1.0, 0.3)
+
+
+@pytest.mark.cuda
+def test_soft_edtsq_softmin_kernels_match_plain(cuda):
+    rng = np.random.default_rng(3)
+    labels = np.kron(rng.integers(0, 4, size=(4, 4, 4)),
+                     np.ones((8, 8, 8), np.uint8)).astype(np.int32)
+    lt = torch.from_numpy(labels).to(cuda)
+    outs = []
+    for kernels in (soft.KERNELS, soft.PLAIN):
+        occ = (lt != 0).float().requires_grad_()
+        out = soft.multilabel_edtsq(lt, occ, (6.0, 6.0, 30.0), True,
+                                    temperature=0.5, kernels=kernels)
+        (g,) = torch.autograd.grad(out.sum(), occ)
+        outs.append((out.detach(), g))
+    (out, g), (rout, rg) = outs
+    torch.testing.assert_close(out, rout, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(g, rg, rtol=1e-4,
+                               atol=1e-4 * float(rg.abs().max()))
