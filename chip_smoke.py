@@ -4,9 +4,11 @@
 
 Builds the CUDA kernels from ``edt_tpu_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (K1 and K2 bit-exact, K3 and
-K4 within rtol=1e-5, atol=1e-5: the same sums in another order; K5 and K6
-within the JAX package's tolerances for its softmin kernels), and drives
-the port's main paths:
+K4 within rtol=1e-5, atol=1e-5: the same sums in another order, K3 the
+same bits from two launches; K5 and K6 within the JAX package's
+tolerances for its softmin kernels; K2's outward search on rows that
+stress its exact stop, K3 on links K2 never makes, both up to and beyond
+their ceilings), and drives the port's main paths:
 
 - slice 1, the forward multi-label EDT through the NumPy API (K1), at
   128^3 and at the 512^3 ``bench.py`` volume;
@@ -157,12 +159,80 @@ def row_radii(f, bound, w2):
 
 
 def k2_candidates(f, walls, w2):
-    """Candidates K2 scans on these inputs: its per-row radius, windows
-    clipped to the row. ``walls``: f32 squared walls or None."""
+    """Candidates in K2's per-row radius on these inputs, windows clipped
+    to the row: what the first version scanned, and the outward search's
+    cap. ``walls``: f32 squared walls or None."""
     n = f.shape[1]
     i = torch.arange(n, dtype=torch.int64, device=f.device)
     r = row_radii(f, f if walls is None else torch.minimum(f, walls), w2)
     return int((torch.clamp(i + r + 1, max=n) - torch.clamp(i - r, min=0)).sum())
+
+
+def k2_search_work(f, walls, w2):
+    """(candidates, steps, warp steps) of K2's outward search on these
+    inputs. A target visits j = i, then for k = 1, 2, ... up to the row
+    radius the j = i -+ k inside the row, until min f + w2 k^2 (rounded as
+    the kernel rounds it) exceeds min(best, wall_i); a warp holds 32
+    adjacent targets and runs as many steps as its slowest.
+    ``walls``: f32 squared walls or None."""
+    from torch.nn.functional import pad
+
+    from edt_tpu_torch.ops import core
+
+    R, n = f.shape
+    inf = float("inf")
+    w2t = torch.tensor(core.f32(w2), dtype=torch.float32, device=f.device)
+    wall = torch.full_like(f, inf) if walls is None else walls
+    minf = f.amin(dim=1, keepdim=True)
+    i = torch.arange(n, device=f.device)
+    r = row_radii(f, f if walls is None else torch.minimum(f, walls), w2)
+    kmax = torch.minimum(r, torch.maximum(i, n - 1 - i))
+    best = f.clone()  # j = i: f_i + w2 * 0
+    lim = torch.minimum(best, wall)
+    active = torch.ones_like(f, dtype=torch.bool)
+    steps = torch.zeros_like(f, dtype=torch.int32)
+    count = R * n
+    for k in range(1, int(kmax.max()) + 1):
+        kf = torch.tensor(float(k), dtype=torch.float32, device=f.device)
+        q = w2t * (kf * kf)
+        active &= (kmax >= k) & ~((minf + q) > lim)
+        live_l, live_r = active & (i >= k), active & (i + k < n)
+        nl, nr = int(live_l.sum()), int(live_r.sum())
+        if nl + nr == 0:
+            break
+        count += nl + nr
+        steps += active
+        cl = pad(f[:, :n - k], (k, 0), value=inf) + q
+        best = torch.where(live_l & (cl <= best) & (cl != inf), cl, best)
+        cr = pad(f[:, k:], (0, k), value=inf) + q
+        best = torch.where(live_r & (cr < best), cr, best)
+        lim = torch.minimum(best, wall)
+    warp = pad(steps, (0, -n % 32)).reshape(R, -1, 32).amax(dim=-1)
+    return count, int(steps.sum()), 32 * int(warp.sum())
+
+
+def k3_steps(links, live):
+    """(shuffle steps, gather steps) a voxel of K3 on these links: the
+    lanes of each 32-voxel chunk that join a group of two or more and are
+    not its leader (one shuffle and add each), and the sources the first
+    version's gather scanned (every target over the row's link range).
+    ``links``: (R, n) absolute targets; ``live``: in the row and not
+    inert."""
+    R, n = links.shape
+    pad_n = -n % 32
+    lane = torch.arange(n + pad_n, device=links.device) % 32
+    lk = torch.nn.functional.pad(links, (0, pad_n))
+    lv = torch.nn.functional.pad(live, (0, pad_n))
+    key = torch.where(lv, lk, -1 - lane).reshape(R, -1, 32).sort(dim=-1).values
+    groups = 1 + (key[..., 1:] != key[..., :-1]).sum(dim=-1)
+    inert = (~lv).reshape(R, -1, 32).sum(dim=-1)
+    shuffles = int(live.sum()) - int((groups - inert).sum())
+    o = links - torch.arange(n, device=links.device)
+    lo = torch.where(live, o, 0).amin(dim=1, keepdim=True).clamp(min=-n)
+    hi = torch.where(live, o, 0).amax(dim=1, keepdim=True).clamp(max=n)
+    j = torch.arange(n, device=links.device)
+    scans = (torch.clamp(j - lo, max=n - 1) - torch.clamp(j - hi, min=0) + 1)
+    return shuffles / links.numel(), int(scans.clamp(min=0).sum()) / links.numel()
 
 
 def bound_ms(nbytes, ops):
@@ -530,6 +600,112 @@ def grad_rows(rng, rows, n, w):
     return f, cnt
 
 
+def k2_stress_rows(rng):
+    """(name, f, int16 counts, w) rows that stress K2's outward search and
+    its exact stop: w2 < 1 and not dyadic, f near 3e7 (where f32 rounding
+    makes neighbouring costs non-monotone), integer costs full of ties at
+    both sides, equal costs at i - k and i + k far out, partly INF rows,
+    and unwalled rows of barrier heights with sparse zeros."""
+    cases = []
+
+    def counts(rows, n):
+        cnt = rng.integers(1, 40, size=(rows, n)).astype(np.int16)
+        cnt[rng.random((rows, n)) > 0.9] = 30000  # open sides
+        return cnt
+
+    for n in (300, 2049):
+        rows = 32 if n <= 512 else 8
+        f = (3e7 + rng.random((rows, n)) * 200).astype(np.float32)
+        f[rows // 2:, ::97] = 2.99999e7
+        for w in (0.4, 1.3):
+            cases.append((f"n={n} w={w} f near 3e7", f, counts(rows, n), w))
+        f = rng.integers(0, 400, size=(rows, n)).astype(np.float32)
+        f[rows // 2:] = 1e4  # sparse sources: ties far out
+        f[rows // 2:, ::53] = rng.integers(0, 400, size=f[rows // 2:, ::53].shape)
+        for w in (1.0, 2.0):
+            cases.append((f"n={n} w={w} integer ties", f, counts(rows, n), w))
+        # two equal sources at p - k and p + k, k up to n / 3
+        f = np.full((rows, n), 1e6, np.float32)
+        p = rng.integers(n // 3, 2 * n // 3, size=rows)
+        k = rng.integers(1, n // 3, size=rows)
+        f[np.arange(rows), p - k] = 7.0
+        f[np.arange(rows), p + k] = 7.0
+        cases.append((f"n={n} w=1.3 mirror ties", f, counts(rows, n), 1.3))
+        f = (rng.random((rows, n)) * 900).astype(np.float32)
+        f[rng.random((rows, n)) < 0.3] = np.inf
+        f[1] = np.inf
+        f[1, rng.integers(0, n)] = 5.0  # one finite source
+        cases.append((f"n={n} w=0.4 partly INF", f, counts(rows, n), 0.4))
+        f = np.full((rows, n), 2.5e8, np.float32)
+        f[rng.random((rows, n)) < 0.02] = 0.0
+        f[0] = 2.5e8  # no zero: radius 0
+        f[2, :] = 2.5e8
+        f[2, -1] = 0.0  # one zero at the end: every search crosses the row
+        for w in (6.0, 30.0):
+            cases.append((f"n={n} w={w} barrier sparse zeros", f,
+                          counts(rows, n), w))
+    return cases
+
+
+def check_k3_cases(close3, dev, rng):
+    """K3 against its plain version on links K2 never makes: random and
+    non-monotone, every live link to one voxel, links that leave the row,
+    absolute int32 argj; n = 1, 33, 300, 16001 (int32 offsets) and the
+    ceiling. Rows of 16001 and more take cotangents in multiples of 1/16,
+    whose sums are exact in any order. Two launches give the same bits.
+    Returns the number of cases."""
+    from edt_tpu_torch.ops import grad
+
+    n_cases = 0
+    for n in (1, 33, 300, 16001, grad.MAX_AXIS):
+        rows = 64 if n <= 300 else (4 if n <= 16001 else 2)
+        idt = torch.int16 if n <= 16000 else torch.int32
+        sent = torch.iinfo(idt).min
+        i = np.arange(n)
+        if n <= 300:
+            g = rng.uniform(-1, 1, (rows, n)).astype(np.float32)
+        else:
+            g = (rng.integers(-64, 64, size=(rows, n)) / 16).astype(np.float32)
+        inert = rng.random((rows, n)) < 0.1
+        one = rng.integers(0, n, size=(rows, 1)) - i  # every link to one voxel
+        leave = np.where(rng.random((rows, n)) < 0.5, -i - 1, n - i)
+        leave = np.where(rng.random((rows, n)) < 0.5, leave,
+                         rng.integers(-n, n, size=(rows, n)))
+        gt = torch.from_numpy(g).to(dev)
+        for name, o in (("random", rng.integers(-n - 5, n + 5, size=(rows, n))),
+                        ("one target", one), ("leaving the row", leave)):
+            o = torch.from_numpy(np.where(inert, sent, o)).to(idt).to(dev)
+            got = grad.minplus_grad(gt, offsets=o, off_sent=sent)
+            close3.check(f"K3 n={n} {name}", got,
+                         grad.minplus_grad_plain(gt, offsets=o, off_sent=sent))
+            if not torch.equal(got, grad.minplus_grad(gt, offsets=o,
+                                                      off_sent=sent)):
+                close3.failures.append(f"K3 n={n} {name}: two launches differ")
+            n_cases += 1
+        argj = torch.from_numpy(rng.integers(-n, 2 * n, size=(rows, n))
+                                .astype(np.int32)).to(dev)
+        close3.check(f"K3 n={n} absolute argj", grad.minplus_grad(gt, argj=argj),
+                     grad.minplus_grad_plain(gt, argj=argj))
+        n_cases += 1
+    return n_cases
+
+
+def check_ceilings(dev):
+    """K2 and K3 raise ValueError on rows one longer than their ceilings."""
+    from edt_tpu_torch.ops import argmin, grad
+
+    for name, fn, n in (
+            ("K2", lambda x: argmin.minplus_argmin(x, 1.0), argmin.MAX_AXIS + 1),
+            ("K3", lambda x: grad.minplus_grad(
+                x, offsets=torch.zeros_like(x, dtype=torch.int32)),
+             grad.MAX_AXIS + 1)):
+        try:
+            fn(torch.zeros((1, n), device=dev))
+        except ValueError:
+            continue
+        raise AssertionError(f"{name}: rows of {n} did not raise")
+
+
 def check_grads(close3, close4, name, ft, o, w2, walls_f32, dev, rng):
     """K3 on K2's residual ``o`` and K4 on the closed-form binary pass's
     residual of the same rows, each against its plain version."""
@@ -552,7 +728,9 @@ def check_grads(close3, close4, name, ft, o, w2, walls_f32, dev, rng):
 
 def phase_grad_kernel_cases(exact, close3, close4, dev):
     """K2 against its plain version, bit-exact, over its regimes, wall
-    kinds and arg encodings; K3 and K4 on the residuals, within tolerance."""
+    kinds and arg encodings, the search's stress rows and its ceiling; K3
+    and K4 on the residuals, within tolerance; K3 on links K2 never makes,
+    and run to run; both ceilings raise beyond."""
     from edt_tpu_torch.ops import argmin, core
 
     rng = np.random.default_rng(11)
@@ -561,6 +739,11 @@ def phase_grad_kernel_cases(exact, close3, close4, dev):
         for w in (1.3, 6.0, 30.0):
             f, cnt = grad_rows(rng, 64 if n <= 512 else 16, n, w)
             cases.append((f"n={n} w={w}", f, cnt, w))
+    rng_new = np.random.default_rng(13)
+    for n in (1, 127, 300, 512, 2049):  # w2 < 1
+        f, cnt = grad_rows(rng_new, 64 if n <= 512 else 16, n, 0.4)
+        cases.append((f"n={n} w=0.4", f, cnt, 0.4))
+    cases += k2_stress_rows(rng_new)
     n_k2 = 0
     for name, f, cnt, w in cases:
         w2 = core.f32(core.f32(w) ** 2)
@@ -598,13 +781,31 @@ def phase_grad_kernel_cases(exact, close3, close4, dev):
         pass
     else:
         raise AssertionError("int16 wall counts on rows of 16001 did not raise")
+    # the ceiling: one source a row, every search crosses up to the row
+    n = argmin.MAX_AXIS
+    f = np.full((2, n), np.inf, np.float32)
+    f[0, rng_new.integers(0, n)] = 3.0
+    f[1, [0, n - 2]] = 0.0  # the middle target ties far out
+    ft = torch.from_numpy(f).to(dev)
+    c32 = torch.full((2, n), 1 << 30, dtype=torch.int32, device=dev)
+    c32[:, ::1000] = 7
+    for wname, walls in (("none", None), ("int32", c32)):
+        d, o = argmin.minplus_argmin(ft, 1.69, walls, True)
+        rd, ro = argmin.minplus_argmin_plain(ft, 1.69, walls, True)
+        exact.check(f"K2 n={n} walls={wname} d", d, rd)
+        exact.check(f"K2 n={n} walls={wname} offsets", o, ro)
+        n_k2 += 1
+    n_k3 = check_k3_cases(close3, dev, rng_new)
+    check_ceilings(dev)
     exact.raise_if_failed("K2 vs plain")
     close3.raise_if_failed("K3 vs plain")
     close4.raise_if_failed("K4 vs plain")
-    print(f"K2 vs plain: {n_k2 + 1} cases bit-exact; K3 and K4 vs plain on "
-          f"{len(cases) + 1} residuals, within rtol={close3.rtol}, "
-          f"atol={close3.atol}: max abs err K3 {close3.max_abs_err}, "
-          f"K4 {close4.max_abs_err}")
+    print(f"K2 vs plain: {n_k2 + 1} cases bit-exact, up to n={n}; K3 and K4 "
+          f"vs plain on {len(cases) + 1} residuals, and K3 on {n_k3} more link "
+          f"sets up to n={n}, each launched twice to the same bits, within "
+          f"rtol={close3.rtol}, atol={close3.atol}: max abs err K3 "
+          f"{close3.max_abs_err}, K4 {close4.max_abs_err}; both raise beyond "
+          f"their ceilings")
 
 
 def fwd_bwd(labels, occ, binary_occupancy, barrier, kernels=None):
@@ -674,6 +875,31 @@ def phase_soft_small(exact, close, dev):
           f"(K2, K3, K4) bench {counts['bench']}, general {counts['general']}")
 
 
+def bench_pass_inputs(lt, occ, barrier):
+    """The inputs of bench.py's fwd+bwd passes at their pass shapes: step
+    0's K4 offsets o0 (axis 1, closed form), and step 1's heights f1, int16
+    wall counts c0 and w2 (axis 0, K2 + K3), rows (n^2, n)."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import argmin, core
+
+    n = lt.shape[0]
+    with torch.no_grad():
+        f0 = (core.f32(barrier) * occ).movedim(1, -1).contiguous().reshape(-1, n)
+        c1 = soft._wall_counts(lt, 1, True).movedim(1, -1).contiguous()
+        c1 = c1.reshape(-1, n)
+        w2 = core.f32(ANISO[1] ** 2)
+        d0, argj0 = soft._minplus_hard_binary_with_arg(f0, w2)
+        win0 = d0 <= argmin.walls_from_counts(c1, w2)
+        o0 = soft._binary_offsets(f0, argj0, win0)
+        step0 = torch.where(win0, d0, argmin.walls_from_counts(c1, w2))
+        del d0, argj0, win0, f0, c1
+        f1 = (step0.reshape(n, n, n).movedim(-1, 1).movedim(0, -1)
+              .contiguous().reshape(-1, n))
+        c0 = soft._wall_counts(lt, 0, True).movedim(0, -1).contiguous()
+        c0 = c0.reshape(-1, n)
+    return o0, f1, c0, core.f32(ANISO[0] ** 2)
+
+
 def phase_soft_full(exact, close, close3, close4, kernels, dev):
     """bench.py's workload at 512^3: exactness, launch counts, times, each
     new kernel alone at its pass shape, and a profile."""
@@ -707,21 +933,7 @@ def phase_soft_full(exact, close, close3, close4, kernels, dev):
 
     # each kernel alone at its pass shape: step 0 (axis 1, closed form +
     # K4) feeds step 1 (axis 0, K2 + K3)
-    with torch.no_grad():
-        f0 = (core.f32(barrier) * occ).movedim(1, -1).contiguous().reshape(-1, FULL)
-        c1 = soft._wall_counts(lt, 1, True).movedim(1, -1).contiguous()
-        c1 = c1.reshape(-1, FULL)
-        w2 = core.f32(ANISO[1] ** 2)
-        d0, argj0 = soft._minplus_hard_binary_with_arg(f0, w2)
-        win0 = d0 <= argmin.walls_from_counts(c1, w2)
-        o0 = soft._binary_offsets(f0, argj0, win0)
-        step0 = torch.where(win0, d0, argmin.walls_from_counts(c1, w2))
-        f1 = (step0.reshape(FULL, FULL, FULL).movedim(-1, 1).movedim(0, -1)
-              .contiguous().reshape(-1, FULL))
-        c0 = soft._wall_counts(lt, 0, True).movedim(0, -1).contiguous()
-        c0 = c0.reshape(-1, FULL)
-        w2 = core.f32(ANISO[0] ** 2)
-        del d0, argj0, win0, step0
+    o0, f1, c0, w2 = bench_pass_inputs(lt, occ, barrier)
     R = f1.shape[0]
     gen = torch.Generator(device=dev).manual_seed(5)
     g = torch.rand((R, FULL), generator=gen, device=dev) * 2 - 1
@@ -736,13 +948,25 @@ def phase_soft_full(exact, close, close3, close4, kernels, dev):
     del rd, ro
     k2_ms, _ = cuda_ms(k2, reps=20, warmup=2)
     k2_plain_ms, _ = cuda_ms(k2_plain, reps=3)
-    cands = k2_candidates(f1, argmin.walls_from_counts(c0, w2), w2)
+    walls1 = argmin.walls_from_counts(c0, w2)
+    cands, steps, warp_steps = k2_search_work(f1, walls1, w2)
+    radius_cands = k2_candidates(f1, walls1, w2)
+    del walls1
     k2_bound = bound_ms(12 * f1.numel(), 4 * cands)
+    # the same launch with no search: f = 0 gives radius 0, the same bytes
+    zeros = torch.zeros_like(f1)
+    k2_fixed_ms, _ = cuda_ms(lambda: argmin.minplus_argmin(zeros, w2, c0, True),
+                             reps=20, warmup=2)
+    del zeros
 
     sent = torch.iinfo(o1.dtype).min
     k3 = lambda: grad.minplus_grad(g, offsets=o1, off_sent=sent)  # noqa: E731
     k3_plain = lambda: grad.minplus_grad_plain(g, offsets=o1, off_sent=sent)  # noqa: E731
-    close3.check("512^3 K3 pass", k3(), k3_plain())
+    df1 = k3()
+    close3.check("512^3 K3 pass", df1, k3_plain())
+    if not torch.equal(df1, k3()):
+        close3.failures.append("512^3 K3 pass: two launches differ")
+    del df1
     idx = torch.arange(FULL, device=dev)
     live = o1 != sent
     links = torch.where(live, idx + o1.to(torch.int64), idx)
@@ -752,7 +976,36 @@ def phase_soft_full(exact, close, close3, close4, kernels, dev):
     k3_lib_ms, _ = cuda_ms(lambda: torch.zeros_like(g).scatter_add_(1, links, gm),
                            reps=20, warmup=2)
     k3_bound = bound_ms(10 * g.numel(), int(live.sum()))
+    shuffles, gather_steps = k3_steps(links, live)
     del links, gm, live
+    # K3 off the main path: random links (no chunk ascends: the match
+    # fallback) and one target a row (31 shuffle steps a chunk)
+    o_rand = torch.randint(-FULL, FULL, (R, FULL), generator=gen, device=dev,
+                           dtype=torch.int16)
+    k3_rand_ms, _ = cuda_ms(lambda: grad.minplus_grad(g, offsets=o_rand),
+                            reps=10, warmup=1)
+    o_one = (torch.randint(0, FULL, (R, 1), generator=gen, device=dev)
+             - idx).to(torch.int16)
+    k3_one_ms, _ = cuda_ms(lambda: grad.minplus_grad(g, offsets=o_one),
+                           reps=10, warmup=1)
+    del o_rand, o_one
+
+    # K2 on unwalled rows of barrier heights (soft_edtsq without
+    # black_border): the first version's radius is the whole row
+    fb = (core.f32(barrier) * occ).reshape(-1, FULL)
+    wb = core.f32(ANISO[2] ** 2)
+    k2b = lambda: argmin.minplus_argmin(fb, wb, None, True)  # noqa: E731
+    db, ob = k2b()
+    rdb, rob = argmin.minplus_argmin_plain(fb, wb, None, True)
+    exact.check("512^3 K2 barrier rows d", db, rdb)
+    exact.check("512^3 K2 barrier rows offsets", ob, rob)
+    exact.raise_if_failed("K2 on barrier rows at 512^3")
+    del db, ob, rdb, rob
+    k2b_ms, _ = cuda_ms(k2b, reps=10, warmup=1)
+    cands_b, steps_b, warp_steps_b = k2_search_work(fb, None, wb)
+    radius_b = k2_candidates(fb, None, wb)
+    k2b_bound, k2b_by = bound_ms(12 * fb.numel(), 4 * cands_b)
+    del fb
 
     k4 = lambda: grad.binary_grad_scan(g, o0, off_sent=sent)  # noqa: E731
     k4_plain = lambda: grad.binary_grad_scan_plain(g, o0, off_sent=sent)  # noqa: E731
@@ -764,16 +1017,29 @@ def phase_soft_full(exact, close, close3, close4, kernels, dev):
     # bytes; the scans' adds (two a voxel) are far below them
     k4_bound = bound_ms(10 * g.numel(), 2 * g.numel())
 
-    for name, ms, pms, (bms, by), lib in (
-            ("K2", k2_ms, k2_plain_ms, k2_bound, None),
-            ("K3", k3_ms, k3_plain_ms, k3_bound, k3_lib_ms),
-            ("K4", k4_ms, k4_plain_ms, k4_bound, None)):
+    vox1 = f1.numel()
+    for name, ms, pms, (bms, by), lib, work in (
+            ("K2", k2_ms, k2_plain_ms, k2_bound, None,
+             f"{cands / vox1:.2f} candidates a voxel visited (the row radius "
+             f"holds {radius_cands / vox1:.1f}) in {steps / vox1:.2f} steps a "
+             f"target, {warp_steps / vox1:.2f} a warp's (its slowest of 32); "
+             f"{k2_fixed_ms:.3f} ms with no search (f = 0)"),
+            ("K3", k3_ms, k3_plain_ms, k3_bound, k3_lib_ms,
+             f"{shuffles:.3f} shuffle steps a voxel (the first version's "
+             f"gather scanned {gather_steps:.1f} sources a voxel); "
+             f"{k3_rand_ms:.3f} ms on random links, {k3_one_ms:.3f} ms on "
+             f"one target a row"),
+            ("K4", k4_ms, k4_plain_ms, k4_bound, None, "two scans a voxel")):
         print(f"{name} one pass {(R, FULL)}: {ms:.3f} ms, plain {pms:.1f} ms, "
               f"bound {bms:.3f} ms ({by})"
               + (f", library scatter_add_ {lib:.3f} ms" if lib else
-                 ", no one-call library equivalent"))
-    print(f"K2 scans {cands / f1.numel():.1f} candidates a voxel")
-    del f1, c0, o1, o0, f0, c1, g
+                 ", no one-call library equivalent") + f"; {work}")
+    print(f"K2 on unwalled barrier rows {(R, FULL)} (w2 {wb:g}): {k2b_ms:.3f} "
+          f"ms, bound {k2b_bound:.3f} ms ({k2b_by}), {cands_b / vox1:.2f} "
+          f"candidates a voxel visited (the row radius holds "
+          f"{radius_b / vox1:.1f}) in {steps_b / vox1:.2f} steps a target, "
+          f"{warp_steps_b / vox1:.2f} a warp's")
+    del f1, c0, o1, o0, g
 
     profile(lambda: fwd_bwd(lt, occ, True, barrier),
             f"{FULL}^3 multilabel_edtsq fwd+bwd (bench flags)", top=12,

@@ -16,18 +16,33 @@
 // offset argj - i in int16 / int32 (the dtype's min on a wall win): the
 // residual the backward (K3, K4) reads.
 //
-// Design (first version: right and simple). One block per row. The row's f
-// and its f32 walls are staged in dynamic shared memory (8 B a voxel: the
-// axis ceiling is the opt-in shared memory over 8). A block reduction gives
-// the row's floor minf and bound = max_i min(f_i, wall_i) (max_i f_i
-// unwalled), and from them the pruning radius exactly as
-// _radius_gap/_radius_from_gap form it: every winner and every tie satisfies
-// w2 k^2 <= min(d_i, wall_i) - minf <= bound - minf. A per-row radius is
-// looser than the TPU's per-tile one, so it prunes only candidates that can
-// neither win nor tie. Each thread takes targets i = tid, tid + blockDim, ...
-// and scans j in [i - r, i + r] ∩ [0, n) ascending with a strict <, so the
-// leftmost j keeps a tie. Unwalled rows of barrier heights get r = n: O(n^2),
-// slow and right.
+// Design. One block per row, about eight targets a thread (32 to 256
+// threads), so that short rows leave many blocks on an SM; the row's f is
+// staged in dynamic shared memory (4 B a voxel: the axis ceiling is the
+// opt-in shared memory over 4). A block reduction gives the row's floor
+// minf and bound = max_i min(f_i, wall_i) (max_i f_i unwalled), and from
+// them the radius r exactly as _radius_gap/_radius_from_gap form it: every
+// winner and every tie lies within w2 k^2 <= bound - minf. The walls are
+// read in the reduction and again, one per target, in the search (an L1/L2
+// hit); they take no shared memory.
+//
+// Each thread takes targets i = tid, tid + blockDim, ... and searches
+// outward, k = 0, 1, ..., min(r, max(i, n - 1 - i)), with
+// q_k = __fmul_rn(w2, __fmul_rn(k, k)) formed once a step for both
+// candidates j = i - k and j = i + k inside the row. It stops before step
+// k when __fadd_rn(minf, q_k) > min(best, wall_i): rounding is monotone and
+// f_j >= minf, so every candidate left rounds to a cost strictly above
+// best (cannot win or tie) or strictly above the wall (loses to it
+// either way). The inequality is strict because ties go to the candidate.
+// The leftmost j keeps a tie: visiting outward, the left candidate
+// (smaller than every j seen) takes over on c <= best, the right one
+// (larger than every j seen) only on c < best. j = i comes first; an INF
+// cost from the left may take over an INF best, so a best still INF at
+// the end (every cost INF) is given arg 0. The values and args are those
+// of the ascending scan over [i - r, i + r] with a strict <, bit for bit.
+// A target takes about sqrt((min(d_i, wall_i) - minf) / w2) steps instead
+// of r: unwalled rows of barrier heights, whose r is the whole row, stop
+// just past the nearest zero.
 //
 // Exactness: every cost is __fadd_rn(f_j, __fmul_rn(w2, __fmul_rn(k, k)))
 // with k a float, two roundings as in the reference (built with -fmad=false
@@ -36,10 +51,9 @@
 //
 // Bound on the card: HBM bytes. On the multi-label path f (4 B) and int16
 // counts (2 B) are read once, d (4 B) and int16 offsets (2 B) written once:
-// 12 B a voxel. The work is about (2 r + 1) candidates a voxel, a few flops
-// each, under the bytes at the radii of real volumes. This version does
-// nothing yet to reach that bound: one row per block leaves loads
-// uncoalesced across rows and threads idle in short rows.
+// 12 B a voxel. The search's instructions hold the kernel above it: about
+// twenty a step of two candidates, and a warp runs until its slowest
+// target stops.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,13 +71,13 @@ enum ArgKind { kAbsI32 = 0, kOffI16 = 1, kOffI32 = 2 };
 template <int kWall>
 __device__ __forceinline__ float load_wall(const void* walls, size_t k,
                                            float w2) {
-  if (kWall == kWallF32) return static_cast<const float*>(walls)[k];
+  if (kWall == kWallF32) return __ldg(static_cast<const float*>(walls) + k);
   int c, sent;
   if (kWall == kWallI16) {
-    c = static_cast<const int16_t*>(walls)[k];
+    c = __ldg(static_cast<const int16_t*>(walls) + k);
     sent = kSent16;
   } else {
-    c = static_cast<const int32_t*>(walls)[k];
+    c = __ldg(static_cast<const int32_t*>(walls) + k);
     sent = kSent32;
   }
   if (c >= sent) return INFINITY;
@@ -78,16 +92,15 @@ minplus_argmin_kernel(const float* __restrict__ f,
                       float* __restrict__ out, void* __restrict__ arg, int n,
                       float w2) {
   constexpr bool kWalled = kWall != kNoWalls;
-  extern __shared__ float smem[];
-  float* s_f = smem;
-  float* s_w = smem + n;  // walled only
+  extern __shared__ float s_f[];
   __shared__ float s_minf[kMaxThreads / 32];
   __shared__ float s_bound[kMaxThreads / 32];
+  __shared__ float s_row_minf;
   __shared__ int s_radius;
 
   const size_t base = (size_t)blockIdx.x * (size_t)n;
 
-  // --- stage f and the walls, reduce the row's floor and bound ---
+  // --- stage f, reduce the row's floor and bound ---
   float minf = INFINITY;
   float bound = -INFINITY;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -95,11 +108,7 @@ minplus_argmin_kernel(const float* __restrict__ f,
     s_f[i] = fi;
     minf = fminf(minf, fi);
     float b = fi;
-    if (kWalled) {
-      const float wi = load_wall<kWall>(walls, base + i, w2);
-      s_w[i] = wi;
-      b = fminf(fi, wi);
-    }
+    if (kWalled) b = fminf(fi, load_wall<kWall>(walls, base + i, w2));
     bound = fmaxf(bound, b);
   }
   for (int off = 16; off > 0; off >>= 1) {
@@ -118,7 +127,7 @@ minplus_argmin_kernel(const float* __restrict__ f,
       bound = fmaxf(bound, s_bound[k]);
     }
     // _radius_gap: all-INF rows need no candidates beyond j == i; a row
-    // with an infinite bound over finite candidates scans in full
+    // with an infinite bound over finite candidates may search in full
     float gap = __fsub_rn(bound, minf);
     if (isfinite(gap)) {
       gap = fmaxf(gap, 0.0f);
@@ -129,31 +138,46 @@ minplus_argmin_kernel(const float* __restrict__ f,
     float r = __fadd_rn(__fmul_rn(__fsqrt_rn(__fdiv_rn(gap, w2)), 1.00001f), 0.01f);
     r = fminf(r, (float)n);
     s_radius = (int)r;
+    s_row_minf = minf;
   }
   __syncthreads();
   const int radius = s_radius;
+  minf = s_row_minf;
 
-  // --- leftmost argmin over each target's window, then the wall ---
+  // --- each target's outward search, stopped exactly, then the wall ---
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int lo = max(0, i - radius);
-    const int hi = min(n, i + radius + 1);
-    float best = INFINITY;
-    int bj = 0;
-    for (int j = lo; j < hi; ++j) {
-      const float k = (float)(i - j);
-      const float c = __fadd_rn(s_f[j], __fmul_rn(w2, __fmul_rn(k, k)));
-      if (c < best) {
-        best = c;
-        bj = j;
+    const float wi = kWalled ? load_wall<kWall>(walls, base + i, w2) : INFINITY;
+    const int kmax = min(radius, max(i, n - 1 - i));
+    // j = i first; a best still INF at the end gets arg 0
+    float best = __fadd_rn(s_f[i], __fmul_rn(w2, 0.0f));
+    int bj = i;
+    float lim = fminf(best, wi);
+    float kf = 0.0f;
+    for (int k = 1; k <= kmax; ++k) {
+      kf = __fadd_rn(kf, 1.0f);
+      const float q = __fmul_rn(w2, __fmul_rn(kf, kf));
+      if (__fadd_rn(minf, q) > lim) break;  // nothing further wins or ties
+      if (k <= i) {  // the smallest j yet: takes a tie
+        const float c = __fadd_rn(s_f[i - k], q);
+        if (c <= best) {
+          best = c;
+          bj = i - k;
+        }
       }
+      if (i + k < n) {  // the largest j yet: must beat
+        const float c = __fadd_rn(s_f[i + k], q);
+        if (c < best) {
+          best = c;
+          bj = i + k;
+        }
+      }
+      lim = fminf(best, wi);
     }
+    if (best == INFINITY) bj = 0;  // every cost INF: arg 0, as jnp.argmin
     bool wall_win = false;
-    if (kWalled) {
-      const float wi = s_w[i];
-      if (wi < best) {  // ties stay with the candidate
-        best = wi;
-        wall_win = true;
-      }
+    if (kWalled && wi < best) {  // ties stay with the candidate
+      best = wi;
+      wall_win = true;
     }
     out[base + i] = best;
     if (kArg == kAbsI32) {
@@ -170,9 +194,11 @@ minplus_argmin_kernel(const float* __restrict__ f,
 template <int kWall, int kArg>
 cudaError_t launch(const float* f, const void* walls, float* out, void* arg,
                    long long rows, int n, float w2, cudaStream_t stream) {
-  int threads = ((n + 31) / 32) * 32;
+  // about eight targets a thread: a short row's block stays small, so
+  // more rows share an SM and the reduction's barriers hold fewer warps
+  int threads = ((n + 8 * 32 - 1) / (8 * 32)) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = (size_t)n * sizeof(float) * (kWall != kNoWalls ? 2 : 1);
+  const size_t smem = (size_t)n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       minplus_argmin_kernel<kWall, kArg>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,7 +1,7 @@
 // K3 and K4: the backward kernels of the differentiable EDT at temperature
 // 0, for Hopper (sm_90a).
 //
-// K3, the argmin gather. Replaces edt_tpu/ops/pallas_kernels.py:
+// K3, the argmin scatter. Replaces edt_tpu/ops/pallas_kernels.py:
 // _minplus_grad_rowsweep_kernel and _minplus_grad_kernel. For each row r:
 //
 //   df[r, j] = sum_i g[r, i] [i + o[r, i] == j]
@@ -10,13 +10,31 @@
 // o = argj - i from absolute int32 indices (negative = inert). A link that
 // leaves the row credits nothing.
 //
-// Design (first version: right and simple). One block per row; g and the
-// links, widened to int32 with inert ones marked, are staged in dynamic
-// shared memory (8 B a voxel: the axis ceiling is the opt-in shared memory
-// over 8). A block reduction gives the row's signed range [lo, hi] of live
-// links. Each thread takes targets j and sums g[i] over i = j - hi .. j - lo
-// ascending where o[i] == j - i. A gather, as on the TPU: no atomics, so the
-// result is the same from run to run.
+// Design: a scatter by source into shared memory, deterministic. The TPU
+// kernel gathers by target because a scatter-add serialises there; here
+// one warp takes a row, up to eight rows a block, and keeps an
+// accumulator acc[0, n) for its row in shared memory (4 B a voxel: the
+// axis ceiling is the opt-in shared memory over 4, one warp a block at the
+// longest rows). The warp walks the row in 32-voxel chunks, ascending,
+// with coalesced loads of g and the links, four chunks in flight. Each
+// lane forms its target t = i + o, inert when the link is inert or leaves
+// the row. The live lanes of a chunk that share a target form a group.
+// When the live targets ascend with the lane, a group is a run of equal
+// targets, found with a ballot and one shuffle. K2's links ascend but where
+// rounding breaks it: in exact arithmetic the leftmost argmin of
+// f_j + w2 (i - j)^2 never moves left as i grows. Other chunks group with
+// __match_any_sync on t (inert lanes take keys of their own and join no
+// group), which costs about as much as the rest of the sweep and so is the
+// fallback only. The group's lowest lane reads acc[t], adds its own g,
+// then the group's other g one lane after another in ascending lane order
+// through shuffles, and writes acc[t] back. Distinct groups hold distinct
+// targets, so no two lanes touch one word; after the sweep the warp writes
+// acc out, coalesced. Every target thus sums its sources onto 0.0 in
+// ascending i, the order of the first version's gather: the same values
+// bit for bit, the same from run to run, with no atomics. Each voxel is
+// read and written once, and the cost no longer depends on the longest
+// link in the row. A chunk whose 32 lanes share one target serialises 31
+// shuffle steps in one lane, still O(1) a voxel.
 //
 // K4, the binary-pass scan. Replaces edt_tpu/ops/pallas_kernels.py:
 // _binary_grad_scan_kernel. Offsets o mark zero sites with the dtype max and
@@ -36,91 +54,109 @@
 // at the zero sites. No shared memory, so no axis ceiling.
 //
 // Bound on the card: HBM bytes. g (4 B) and int16 offsets (2 B) read once,
-// df (4 B) written once: 10 B a voxel for either kernel. This version does
-// nothing yet to reach it: K3 is one row per block like K2, and K4 reads g
-// and the offsets twice (one sweep each way) and df again at zero sites.
+// df (4 B) written once: 10 B a voxel for either kernel. K4 does nothing
+// yet to reach it: it reads g and the offsets twice (one sweep each way)
+// and df again at zero sites.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kGradWarps = 8;  // rows a block, at most
+constexpr int kGradUnroll = 4;  // chunks in flight
+constexpr int kMaxSmem = 232448;  // an H100 block's opt-in shared memory
 constexpr int kScanWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kInert = INT_MIN;  // never equals j - i, which is in (-n, n)
 
 enum LinkKind { kAbsI32 = 0, kOffI16 = 1, kOffI32 = 2 };
 
+// The target of source i, or -1 when its link is inert or leaves the row.
 template <int kLink>
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ int load_target(const void* links, size_t k, int i,
+                                           int n, int off_sent, int has_sent) {
+  if (kLink == kAbsI32) {
+    const int a = __ldg(static_cast<const int32_t*>(links) + k);
+    return (a >= 0 && a < n) ? a : -1;  // negative: inert
+  }
+  const int o = (kLink == kOffI16)
+                    ? (int)__ldg(static_cast<const int16_t*>(links) + k)
+                    : __ldg(static_cast<const int32_t*>(links) + k);
+  if (has_sent && o == off_sent) return -1;
+  return (o >= -i && o < n - i) ? i + o : -1;  // no overflow: |i|, |n| small
+}
+
+// One chunk of a warp's sweep: each lane holds source i's target t (-1
+// inert) and cotangent gi; every group of live lanes sharing a target adds
+// its cotangents into acc[t] through its lowest lane, in ascending lane
+// order.
+__device__ __forceinline__ void scatter_chunk(float* acc, int t, float gi,
+                                              int lane) {
+  const bool live = t >= 0;
+  // the nearest live lane below this one (itself if none) and its target
+  const unsigned below = __ballot_sync(kFull, live) & ((1u << lane) - 1u);
+  const int p = below ? 31 - __clz(below) : lane;
+  const int tp = __shfl_sync(kFull, t, p);
+  bool leader;
+  if (__all_sync(kFull, !live || p == lane || tp <= t)) {
+    // live targets ascend with the lane, as K2's do: a group is a run
+    leader = live && (p == lane || tp != t);
+  } else {
+    const unsigned m = __match_any_sync(kFull, live ? t : -1 - lane);
+    leader = live && (m & ((1u << lane) - 1u)) == 0u;
+  }
+  // the lanes of groups of two or more that are not their group's leader
+  const unsigned rest = __ballot_sync(kFull, live && !leader);
+  float a = 0.0f;
+  if (leader) a = acc[t] + gi;
+  for (unsigned r = rest; r; r &= r - 1u) {  // warp-uniform, ascending
+    const int s = __ffs(r) - 1;
+    const float v = __shfl_sync(kFull, gi, s);
+    const int ts = __shfl_sync(kFull, t, s);
+    if (leader && ts == t) a += v;
+  }
+  if (leader) acc[t] = a;
+  __syncwarp();
+}
+
+template <int kLink>
+__global__ void __launch_bounds__(kGradWarps * 32)
 minplus_grad_kernel(const float* __restrict__ g, const void* __restrict__ links,
-                    float* __restrict__ out, int n, int off_sent,
-                    int has_sent) {
+                    float* __restrict__ out, long long rows, int n,
+                    int off_sent, int has_sent) {
   extern __shared__ float smem[];
-  float* s_g = smem;
-  int* s_o = reinterpret_cast<int*>(smem + n);
-  __shared__ int s_lo[kMaxThreads / 32];
-  __shared__ int s_hi[kMaxThreads / 32];
-  __shared__ int s_range[2];
-
-  const size_t base = (size_t)blockIdx.x * (size_t)n;
-
-  // --- stage g and the live links, reduce their signed range ---
-  int lo = 0, hi = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int o;
-    bool live;
-    if (kLink == kAbsI32) {
-      const int a = static_cast<const int32_t*>(links)[base + i];
-      live = a >= 0;
-      o = a - i;
-    } else {
-      o = (kLink == kOffI16) ? (int)static_cast<const int16_t*>(links)[base + i]
-                             : (int)static_cast<const int32_t*>(links)[base + i];
-      live = !(has_sent && o == off_sent);
-    }
-    s_g[i] = g[base + i];
-    s_o[i] = live ? o : kInert;
-    if (live) {
-      lo = min(lo, o);
-      hi = max(hi, o);
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(kFull, lo, off));
-    hi = max(hi, __shfl_xor_sync(kFull, hi, off));
-  }
   const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 1; k < (int)(blockDim.x >> 5); ++k) {
-      lo = min(lo, s_lo[k]);
-      hi = max(hi, s_hi[k]);
-    }
-    // links beyond (-n, n) never land in the row
-    s_range[0] = max(lo, -n);
-    s_range[1] = min(hi, n);
-  }
-  __syncthreads();
-  lo = s_range[0];
-  hi = s_range[1];
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;  // whole warps only: the shuffles stay full
+  float* acc = smem + (size_t)warp * n;
+  const size_t base = (size_t)row * (size_t)n;
 
-  // --- gather: each target sums its sources, ascending i ---
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int i_lo = max(0, j - hi);
-    const int i_hi = min(n - 1, j - lo);
-    float acc = 0.0f;
-    for (int i = i_lo; i <= i_hi; ++i) {
-      if (s_o[i] == j - i) acc += s_g[i];
+  for (int j = lane; j < n; j += 32) acc[j] = 0.0f;
+  __syncwarp();
+
+  // --- the sweep: ascending chunks, kGradUnroll loaded ahead ---
+  for (int c0 = 0; c0 < n; c0 += 32 * kGradUnroll) {
+    int t[kGradUnroll];
+    float gv[kGradUnroll];
+#pragma unroll
+    for (int u = 0; u < kGradUnroll; ++u) {
+      const int i = c0 + 32 * u + lane;
+      t[u] = -1;
+      gv[u] = 0.0f;
+      if (i < n) {
+        t[u] = load_target<kLink>(links, base + i, i, n, off_sent, has_sent);
+        gv[u] = g[base + i];
+      }
     }
-    out[base + j] = acc;
+#pragma unroll
+    for (int u = 0; u < kGradUnroll; ++u) {
+      if (c0 + 32 * u < n) scatter_chunk(acc, t[u], gv[u], lane);
+    }
   }
+
+  // --- write the row out, coalesced ---
+  for (int j = lane; j < n; j += 32) out[base + j] = acc[j];
 }
 
 template <int kLink>
@@ -207,15 +243,20 @@ template <int kLink>
 cudaError_t launch_grad(const float* g, const void* links, float* out,
                         long long rows, int n, int off_sent, int has_sent,
                         cudaStream_t stream) {
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = (size_t)n * (sizeof(float) + sizeof(int));
+  // as many rows a block as their accumulators fit, up to kGradWarps
+  long long warps = (kMaxSmem - 256) / ((long long)n * (long long)sizeof(float));
+  if (warps > kGradWarps) warps = kGradWarps;
+  if (warps > rows) warps = rows;
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)warps * (size_t)n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       minplus_grad_kernel<kLink>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  minplus_grad_kernel<kLink><<<(unsigned)rows, threads, smem, stream>>>(
-      g, links, out, n, off_sent, has_sent);
+  const long long blocks = (rows + warps - 1) / warps;
+  minplus_grad_kernel<kLink><<<(unsigned)blocks, (unsigned)warps * 32, smem,
+                               stream>>>(g, links, out, rows, n, off_sent,
+                                         has_sent);
   return cudaGetLastError();
 }
 

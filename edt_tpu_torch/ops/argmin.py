@@ -20,10 +20,10 @@ from edt_tpu_torch.ops import _build, core
 from edt_tpu_torch.ops.minplus import MAX_SMEM_BYTES, PLAIN_COST_BYTES, _check
 from edt_tpu_torch.ops.wall_sentinels import WALL_SENT16, WALL_SENT32
 
-# Longest row the kernel takes: it stages the f32 row and the row's f32
-# walls in shared memory, 8 B a voxel, within an H100 block's opt-in
-# 232448 bytes less the kernel's few static bytes. Longer axes raise.
-MAX_AXIS = (MAX_SMEM_BYTES - 256) // 8
+# Longest row the kernel takes: it stages the f32 row in shared memory,
+# 4 B a voxel (the walls stay in device memory), within an H100 block's
+# opt-in 232448 bytes less the kernel's few static bytes. Longer axes raise.
+MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
 
 # Rows up to this length keep int16 link offsets and int16 wall counts.
 I16_MAX_AXIS = 16000

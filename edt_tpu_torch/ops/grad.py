@@ -22,8 +22,13 @@ import functools
 import torch
 
 from edt_tpu_torch.ops import _build
-from edt_tpu_torch.ops.argmin import MAX_AXIS
-from edt_tpu_torch.ops.minplus import _check
+from edt_tpu_torch.ops.minplus import MAX_SMEM_BYTES, _check
+
+# Longest row K3 takes: each warp keeps its row's f32 accumulator in shared
+# memory, 4 B a voxel, and at the longest rows a block holds one warp,
+# within an H100 block's opt-in 232448 bytes. Longer axes raise. K4 keeps
+# nothing in shared memory and takes any length.
+MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
 
 # csrc/grad.cu's link_kind codes
 _ABS_I32, _OFF_I16, _OFF_I32 = 0, 1, 2

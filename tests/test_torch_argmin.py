@@ -161,6 +161,12 @@ def test_argmin_int16_counts_on_long_rows_raise():
                                                         dtype=torch.int16))
 
 
+def test_kernel_ceilings():
+    """K2 stages only the f32 row and K3 only its f32 accumulator in shared
+    memory, 4 B a voxel each: both take rows up to 58048, as K1 and K5."""
+    assert argmin.MAX_AXIS == 58048 and grad.MAX_AXIS == 58048
+
+
 def _links(kind):
     """Cotangents and K2's link residuals (walled offsets) of a regime."""
     f, _, cnt, w2 = _regime(kind)

@@ -122,6 +122,86 @@ def test_grad_kernels_match_plain(cuda):
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
 
 
+def _far_tie_rows(n, rng):
+    """Rows whose costs tie at i - k and i + k far out (two equal sources
+    about the middle), integer heights full of ties (w2 = 1), and heights
+    near 3e7, where f32 rounding makes neighbouring costs non-monotone."""
+    f = np.full((12, n), 1e6, np.float32)
+    k = rng.integers(1, n // 3, size=4)
+    f[np.arange(4), n // 2 - k] = 7.0
+    f[np.arange(4), n // 2 + k] = 7.0
+    f[4:8] = rng.integers(0, 400, size=(4, n))
+    f[8:] = 3e7 + rng.random((4, n)) * 200
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w2", [0.16, 1.0, 1.69])
+def test_argmin_kernel_far_ties_and_small_w2(cuda, w2):
+    """K2's outward search keeps the leftmost tie however far out, and its
+    exact stop holds for w2 < 1: bit-exact to the plain version."""
+    rng = np.random.default_rng(5)
+    ft = torch.from_numpy(_far_tie_rows(301, rng)).to(cuda)
+    cnt = torch.from_numpy(rng.integers(1, 40, size=(12, 301)).astype(np.int16))
+    for walls in (None, cnt.to(cuda)):
+        for emit in (False, True):
+            d, a = argmin.minplus_argmin(ft, w2, walls, emit)
+            rd, ra = argmin.minplus_argmin_plain(ft, w2, walls, emit)
+            assert torch.equal(d, rd) and torch.equal(a, ra)
+
+
+def _k3_links(kind, n, rng):
+    """(R, n) int16 link offsets K2 never makes: random and non-monotone,
+    every live link to one voxel, or links that leave the row; about a
+    tenth inert."""
+    i = np.arange(n)
+    if kind == "non-monotone":
+        o = rng.integers(-n, n, size=(16, n))
+    elif kind == "one-target":
+        o = rng.integers(0, n, size=(16, 1)) - i
+    else:  # leaving the row on either side
+        o = np.where(rng.random((16, n)) < 0.5, -i - 1, n - i)
+    return np.where(rng.random((16, n)) < 0.1, -32768, o).astype(np.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["non-monotone", "one-target", "leaving"])
+def test_grad_kernel_any_links(cuda, kind):
+    """K3 scatters any links: within rtol=1e-6, atol=1e-6 of the plain
+    version, the same bits from two launches."""
+    rng = np.random.default_rng(6)
+    for n in (1, 33, 300):
+        o = torch.from_numpy(_k3_links(kind, n, rng)).to(cuda)
+        g = torch.from_numpy(rng.uniform(-1, 1, (16, n)).astype(np.float32)).to(cuda)
+        got = grad.minplus_grad(g, offsets=o, off_sent=-32768)
+        ref = grad.minplus_grad_plain(g, offsets=o, off_sent=-32768)
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+        assert torch.equal(got, grad.minplus_grad(g, offsets=o, off_sent=-32768))
+
+
+@pytest.mark.cuda
+def test_argmin_and_grad_ceilings(cuda):
+    """Both kernels take rows up to 58048 and raise beyond: one source a
+    row, d = w2 k^2 exactly; one link target, df = the row's sum (the
+    cotangents are multiples of 1/16, so the sums are exact)."""
+    n = argmin.MAX_AXIS
+    f = torch.full((2, n), float("inf"), device=cuda)
+    f[:, 5] = 0.0
+    d, a = argmin.minplus_argmin(f, 1.69, None)
+    k = (torch.arange(n, device=cuda) - 5).to(torch.float32)
+    assert torch.equal(d, (1.69 * (k * k)).expand(2, n))
+    assert bool((a == 5).all())
+    g = torch.randint(-64, 64, (2, grad.MAX_AXIS), device=cuda) / 16.0
+    o = (7 - torch.arange(grad.MAX_AXIS, device=cuda)).to(torch.int32).expand(2, -1)
+    df = grad.minplus_grad(g, offsets=o.contiguous())
+    assert torch.equal(df[:, 7], g.sum(dim=1)) and int((df != 0).sum()) <= 2
+    with pytest.raises(ValueError, match="exceed"):
+        argmin.minplus_argmin(torch.zeros((1, n + 1), device=cuda), 1.0)
+    with pytest.raises(ValueError, match="exceed"):
+        big = torch.zeros((1, grad.MAX_AXIS + 1), device=cuda)
+        grad.minplus_grad(big, offsets=torch.zeros_like(big, dtype=torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("binocc", [True, False])
 def test_multilabel_edtsq_kernels_match_plain(cuda, binocc):
