@@ -6,9 +6,10 @@ Builds the CUDA kernels from ``edt_tpu_torch/csrc``, holds every kernel
 against its plain PyTorch version on the card (K1 and K2 bit-exact, K3 and
 K4 within rtol=1e-5, atol=1e-5: the same sums in another order, K3 the
 same bits from two launches; K5 and K6 within the JAX package's
-tolerances for its softmin kernels; K2's outward search on rows that
-stress its exact stop, K3 on links K2 never makes, both up to and beyond
-their ceilings), and drives the port's main paths:
+tolerances for its softmin kernels; K1's and K2's outward searches on rows
+that stress their exact stops, K3 on links K2 never makes, K6 on
+DistanceFieldNet-like rows, each up to and beyond its ceiling, K1, K3 and
+K6 launched twice to the same bits), and drives the port's main paths:
 
 - slice 1, the forward multi-label EDT through the NumPy API (K1), at
   128^3 and at the 512^3 ``bench.py`` volume;
@@ -242,25 +243,38 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_candidates(f, ss, se, w2, black_border, masked):
-    """Candidates K1 scans on these inputs (its per-row radius, windows
-    clipped to the row and, masked, to the target's segment)."""
+def k1_walls(f, ss, se, w2, black_border, masked):
+    """Each target's wall as K1 forms it: min of the segment walls
+    w2 (i - ss + 1)^2, w2 (se - i)^2 (masked; open ends INF unless
+    black_border), the border parabolas (binary with black_border), else
+    INF; every square f32(k) * f32(k), then times w2."""
     from edt_tpu_torch.ops import core
 
-    R, n = f.shape
-    w2 = core.f32(w2)
+    n = f.shape[1]
+    inf = float("inf")
+    w2t = torch.tensor(core.f32(w2), dtype=torch.float32, device=f.device)
     i = torch.arange(n, dtype=torch.int32, device=f.device)
-    bound = f
     if masked:
-        lw = (i - ss + 1).to(torch.float32).square() * w2
-        rw = (se - i).to(torch.float32).square() * w2
+        lw = w2t * (i - ss + 1).to(torch.float32).square()
+        rw = w2t * (se - i).to(torch.float32).square()
         if not black_border:
-            lw = torch.where(ss > 0, lw, float("inf"))
-            rw = torch.where(se < n, rw, float("inf"))
-        bound = torch.minimum(f, torch.minimum(lw, rw))
-    elif black_border:
-        bw = core.binary_border_sq(torch.full_like(f, float("inf")), n, w2)
-        bound = torch.minimum(f, bw)
+            lw = torch.where(ss > 0, lw, inf)
+            rw = torch.where(se < n, rw, inf)
+        return torch.minimum(lw, rw)
+    if black_border:
+        sq = torch.minimum((i + 1).to(torch.float32).square(),
+                           (n - i).to(torch.float32).square())
+        return (w2t * sq).expand_as(f)
+    return torch.full_like(f, inf)
+
+
+def k1_candidates(f, ss, se, w2, black_border, masked):
+    """Candidates in K1's per-row radius on these inputs, windows clipped
+    to the row and, masked, to the target's segment: what the first
+    version scanned, and the outward search's cap."""
+    R, n = f.shape
+    i = torch.arange(n, dtype=torch.int32, device=f.device)
+    bound = torch.minimum(f, k1_walls(f, ss, se, w2, black_border, masked))
     r = row_radii(f, bound, w2)
     lo = torch.clamp(i - r, min=0)
     hi = torch.clamp(i + r + 1, max=n)
@@ -270,13 +284,61 @@ def k1_candidates(f, ss, se, w2, black_border, masked):
     return int((hi - lo).clamp(min=0).sum())
 
 
-def k1_bound_ms(f, ss, se, w2, black_border, masked):
+def k1_search(f, ss, se, w2, black_border, masked):
+    """K1's outward search emulated in torch with the kernel's roundings:
+    (d, candidates, steps, warp steps) on these inputs. A target holds
+    best = f_i, then for k = 1, 2, ... up to min(row radius, max(kl, kr))
+    takes the j = i - k (k <= kl = i - ss) and j = i + k (k <= kr =
+    se - 1 - i) of its segment (binary: of the row), until lb + w2 k^2
+    exceeds min(best, wall_i), lb the min f of the segment on masked rows
+    up to 512 (one warp a row), of the row otherwise; d is
+    min(best, wall_i). A warp holds 32 adjacent targets and runs as many
+    steps as its slowest. The kernel's values are these, bit for bit."""
+    from torch.nn.functional import pad
+
+    from edt_tpu_torch.ops import core
+
+    R, n = f.shape
+    inf = float("inf")
+    w2t = torch.tensor(core.f32(w2), dtype=torch.float32, device=f.device)
+    wall = k1_walls(f, ss, se, w2, black_border, masked)
+    lb = f.amin(dim=1, keepdim=True)
+    if masked and n <= 512:  # segment mins, gathered at each segment start
+        lb = torch.full_like(f, inf).scatter_reduce(
+            1, ss.long(), f, "amin").gather(1, ss.long())
+    i = torch.arange(n, device=f.device)
+    kl, kr = (i - ss, se - 1 - i) if masked else (i, n - 1 - i)
+    kmax = torch.minimum(row_radii(f, torch.minimum(f, wall), w2),
+                         torch.maximum(kl, kr))
+    best = f + w2t * 0.0
+    lim = torch.minimum(best, wall)
+    active = torch.ones_like(f, dtype=torch.bool)
+    steps = torch.zeros_like(f, dtype=torch.int32)
+    count = R * n
+    for k in range(1, int(kmax.max()) + 1 if n else 1):
+        kf = torch.tensor(float(k), dtype=torch.float32, device=f.device)
+        q = w2t * (kf * kf)
+        active &= (kmax >= k) & ~((lb + q) > lim)
+        live_l, live_r = active & (kl >= k), active & (kr >= k)
+        nl, nr = int(live_l.sum()), int(live_r.sum())
+        if nl + nr == 0:
+            break
+        count += nl + nr
+        steps += active
+        cl = pad(f[:, :n - k], (k, 0), value=inf) + q
+        best = torch.where(live_l, torch.minimum(best, cl), best)
+        cr = pad(f[:, k:], (0, k), value=inf) + q
+        best = torch.where(live_r, torch.minimum(best, cr), best)
+        lim = torch.minimum(best, wall)
+    warp = pad(steps, (0, -n % 32)).reshape(R, -1, 32).amax(dim=-1)
+    return lim, count, int(steps.sum()), 32 * int(warp.sum())
+
+
+def k1_bound_ms(f, ss, se, w2, black_border, masked, candidates):
     """Least time for K1's work on the card: HBM bytes (f, and ss/se when
-    masked, read once; d written once) or f32 operations (4 a candidate:
-    square, scale, add, min), whichever is larger."""
-    nbytes = f.numel() * (16 if masked else 8)
-    return bound_ms(nbytes, 4 * k1_candidates(f, ss, se, w2, black_border,
-                                              masked))
+    masked, read once; d written once) or f32 operations (4 a candidate
+    the search needs: square, scale, add, min), whichever is larger."""
+    return bound_ms(f.numel() * (16 if masked else 8), 4 * candidates)
 
 
 def sfu_exps_per_s():
@@ -323,16 +385,37 @@ def k5_work(f, w2, t):
     return window_terms(dmin - minf, w2), window_terms(dmin + cut - minf, w2)
 
 
-def k6_work(f, d, w2, t):
-    """Exp terms of K6 on these inputs: df's over the sources, e's over
-    the targets."""
+def k6_pairs(f, d, w2, t):
+    """(needed, visited) pairs of K6 on these inputs. Needed: the pairs the
+    function needs, those inside each target's own cut, f_j + w2 k^2 - d_i
+    <= 30 t (cost rounded as the kernel rounds it), one exp each. Visited:
+    the candidates in K6's windows, w2 k^2 <= d_i + 30 t - min f, which its
+    first pass walks."""
     from edt_tpu_torch.ops import core
 
+    R, n = f.shape
     cut = core.f32(30.0 * t)
     minf = f.amin(dim=1, keepdim=True)
-    maxd = d.amax(dim=1, keepdim=True)
-    return (window_terms(maxd + cut - f, w2)
-            + window_terms(d + cut - minf, w2))
+    q = torch.arange(n, dtype=torch.float32, device=f.device)
+    q = q[:, None] - q[None, :]
+    wq = (q * q) * core.f32(w2)
+    needed = 0
+    for r0 in range(0, R, max(1, (1 << 28) // (n * n or 1))):
+        cost = f[r0:r0 + (1 << 28) // (n * n or 1), None, :] + wq
+        needed += int(((d[r0:r0 + cost.shape[0], :, None] - cost) >= -cut)
+                      .sum())
+        del cost
+    return needed, window_terms(d + cut - minf, w2)
+
+
+def k6_bound_ms(f, d, w2, t, exps_per_s):
+    """K6's least time on these inputs: 20 B a voxel (f, d, g read, df, e
+    written), or its needed pairs at one exp each (the special-function
+    rate) or 7 f32 operations each (square, scale, add, sub, scale, two
+    sums), the largest. Returns (bound_exp_ms's triple, needed, visited)."""
+    needed, visited = k6_pairs(f, d, w2, t)
+    return (bound_exp_ms(20 * f.numel(), 7 * needed, needed, exps_per_s),
+            needed, visited)
 
 
 def profile(fn, label, top=8, by_op=False):
@@ -394,8 +477,97 @@ def phase_build():
                 print(f"  {name}: {line.strip()}")
 
 
+def k1_stress_rows(rng):
+    """(name, f, labels, w2) rows that stress K1's outward search and its
+    exact stop, w2 as it reaches the kernel: w2 in {0.7, 1, 36, 900} (at
+    0.7, w2 k^2 rounds), f near 3e7 (ulp 2: neighbouring costs round
+    together), heights up to 3e38 with w2 = 1e34 (w2 k^2 overflows to
+    INF), partly and wholly INF rows, one-voxel segments, and INF heights
+    in a walled segment."""
+    cases = []
+    for n in (300, 2049):
+        rows = 32 if n <= 512 else 8
+        for w2 in (0.7, 1.0, 36.0, 900.0):
+            f = (3e7 + rng.random((rows, n)) * 200).astype(np.float32)
+            f[rows // 2:, ::97] = 2.99999e7
+            lab = rng.integers(0, 3, size=(rows, n)).astype(np.int32)
+            cases.append((f"n={n} w2={w2} f near 3e7", f, lab, w2))
+            f = (rng.random((rows, n)) * 900).astype(np.float32)
+            f[rng.random((rows, n)) < 0.3] = np.inf
+            f[1] = np.inf  # a wholly INF row
+            f[2] = np.inf
+            f[2, rng.integers(0, n)] = 5.0  # one finite height
+            lab = np.repeat(rng.integers(1, 4, size=(rows, n // 50 + 1)),
+                            50, axis=1)[:, :n].astype(np.int32)
+            cases.append((f"n={n} w2={w2} partly INF", f, lab, w2))
+            f = (rng.random((rows, n)) * 50 * w2).astype(np.float32)
+            lab = (np.arange(n) % 3 + 1)[None, :].repeat(rows, 0)
+            lab[rows // 2:] = rng.integers(1, 3, size=(rows - rows // 2, n))
+            cases.append((f"n={n} w2={w2} one-voxel segments", f,
+                          lab.astype(np.int32), w2))
+        f = np.full((rows, n), np.inf, np.float32)
+        f[:, ::40] = rng.random((rows, len(range(0, n, 40)))) * 100
+        f[: rows // 2, 60:200] = np.inf  # INF heights in a walled segment
+        lab = np.ones((rows, n), np.int32)
+        lab[:, 55:205] = 2
+        cases.append((f"n={n} w2=1.69 INF segment", f, lab, 1.69))
+        f = (3e38 * rng.random((rows, n))).astype(np.float32)
+        f[:, ::7] = 0.0
+        f[rng.random((rows, n)) < 0.2] = np.inf
+        cases.append((f"n={n} w2=1e34 near f32 max", f,
+                      rng.integers(1, 3, size=(rows, n)).astype(np.int32),
+                      1e34))
+    return cases
+
+
+def minplus_walls_by_targets(f, ss, se, w2, black_border, masked,
+                             chunk=512):
+    """minplus_walls_plain's arithmetic taken ``chunk`` targets at a time:
+    the plain version on rows too long for its (rows, n, n) cost tensor."""
+    from edt_tpu_torch.ops import core
+
+    n = f.shape[1]
+    w2 = core.f32(w2)
+    j = torch.arange(n, dtype=torch.float32, device=f.device)
+    d = torch.empty_like(f)
+    for i0 in range(0, n, chunk):
+        diff = j[i0:i0 + chunk, None] - j[None, :]
+        d[:, i0:i0 + chunk] = (f[:, None, :] + (diff * diff) * w2).amin(-1)
+    if masked:
+        return core.border_envelopes_sq(d, ss, se, n, w2, black_border)
+    return core.binary_border_sq(d, n, w2) if black_border else d
+
+
+def check_k1(exact, name, f, lab, w2, dev):
+    """K1 against its plain version, bit-exact, multi-label and binary,
+    each with and without black_border; two launches give the same bits.
+    ``f`` is zeroed where ``lab`` is background, as a pass receives it.
+    Rows longer than 4096 take the plain arithmetic by target chunks."""
+    from edt_tpu_torch.ops import core, minplus
+
+    plain = (minplus.minplus_walls_plain if f.shape[1] <= 4096
+             else minplus_walls_by_targets)
+
+    for binary in (False, True):
+        lb = (lab != 0).astype(np.int32) if binary else lab
+        ff = np.where(lb == 0, np.float32(0), f).astype(np.float32)
+        ft = torch.from_numpy(ff).to(dev)
+        ss, se = core.segment_bounds(torch.from_numpy(lb).to(dev))
+        for bb in (False, True):
+            got = minplus.minplus_walls(ft, ss, se, w2, bb, not binary)
+            ref = plain(ft, ss, se, w2, bb, not binary)
+            exact.check(f"{name} binary={binary} bb={bb}", got, ref)
+            again = minplus.minplus_walls(ft, ss, se, w2, bb, not binary)
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                exact.failures.append(f"{name} binary={binary} bb={bb}: two "
+                                      "launches differ")
+    return 4
+
+
 def phase_kernel_cases(exact, dev):
-    """K1 against its plain version, bit-exact, over the regimes it has."""
+    """K1 against its plain version, bit-exact, over the regimes it has,
+    the rows that stress its outward search, and rows at its ceiling; two
+    launches give the same bits; rows beyond the ceiling raise."""
     from edt_tpu_torch.ops import core, minplus
 
     rng = np.random.default_rng(7)
@@ -408,13 +580,13 @@ def phase_kernel_cases(exact, dev):
             if n >= 300:  # a long run: large radii beside small ones
                 f[: rows // 2, 100:260] = 500.0 * w * w
                 lab[: rows // 2, 100:260] = 1
-            cases.append((f"n={n} w={w}", f, lab, w))
+            cases.append((f"n={n} w={w}", f, lab, core.f32(core.f32(w) ** 2)))
     # the mixed band/large-radius field of the JAX kernel tests
     f = rng.random((10, 300)).astype(np.float32) * 25
     lab = rng.integers(0, 3, size=(10, 300)).astype(np.int32)
     f[:, 100:260] = 500.0
     lab[:, 100:260] = 1
-    cases.append(("mixed", f, lab, 1.1))
+    cases.append(("mixed", f, lab, core.f32(core.f32(1.1) ** 2)))
     # constant rows: radius 0
     i = np.arange(300, dtype=np.float32)
     cases.append(("constant", np.repeat((i ** 2)[:, None], 40, axis=1),
@@ -422,27 +594,30 @@ def phase_kernel_cases(exact, dev):
     # all-INF rows beside finite ones
     f = rng.random((64, 200)).astype(np.float32) * 50
     f[::2] = np.inf
-    cases.append(("all-inf rows", f, np.ones((64, 200), np.int32), 1.3))
+    cases.append(("all-inf rows", f, np.ones((64, 200), np.int32),
+                  core.f32(core.f32(1.3) ** 2)))
     # one source per row, INF elsewhere: every row scans in full
     f = np.full((8, 2049), np.inf, np.float32)
     f[np.arange(8), rng.integers(0, 2049, size=8)] = 0.0
     lab = np.ones((8, 2049), np.int32)
     lab[f == 0] = 0
-    cases.append(("full-row radius", f, lab, 1.3))
+    cases.append(("full-row radius", f, lab, core.f32(core.f32(1.3) ** 2)))
+    cases += k1_stress_rows(np.random.default_rng(19))
+    # rows at the ceiling: random heights over runs of labels, and one
+    # source a row, INF elsewhere
+    n = minplus.MAX_AXIS
+    f = (rng.random((2, n)) * 900).astype(np.float32)
+    lab = np.repeat(rng.integers(0, 4, size=(2, n // 64 + 1)), 64,
+                    axis=1)[:, :n].astype(np.int32)
+    cases.append((f"n={n}", f, lab, 36.0))
+    f = np.full((2, n), np.inf, np.float32)
+    f[0, rng.integers(0, n)] = 0.0
+    f[1, [3, n - 9]] = 0.0
+    cases.append((f"n={n} sparse sources", f, np.ones((2, n), np.int32), 0.7))
 
-    for name, f, lab, w in cases:
-        w2 = core.f32(core.f32(w) ** 2)
-        for binary in (False, True):
-            lb = (lab != 0).astype(np.int32) if binary else lab
-            ff = np.where(lb == 0, np.float32(0), f).astype(np.float32)
-            ft = torch.from_numpy(ff).to(dev)
-            ss, se = core.segment_bounds(torch.from_numpy(lb).to(dev))
-            for bb in (False, True):
-                got = minplus.minplus_walls(ft, ss, se, w2, bb, not binary)
-                ref = minplus.minplus_walls_plain(ft, ss, se, w2, bb,
-                                                  not binary)
-                exact.check(f"{name} binary={binary} bb={bb}", got, ref)
-    # the longest row the kernel takes, one source: d = w2 i^2 exactly
+    n_cases = sum(check_k1(exact, name, f, lab, w2, dev)
+                  for name, f, lab, w2 in cases)
+    # the longest row, one source: d = w2 i^2 exactly
     n = minplus.MAX_AXIS
     ft = torch.full((4, n), float("inf"), device=dev)
     ft[:, 0] = 0.0
@@ -450,8 +625,16 @@ def phase_kernel_cases(exact, dev):
     idx = torch.arange(n, dtype=torch.float32, device=dev)
     got = minplus.minplus_walls(ft, None, None, w2, False, False)
     exact.check(f"n={n} one source", got, ((idx * idx) * w2).expand(4, n))
+    try:
+        minplus.minplus_walls(torch.zeros((1, n + 1), device=dev), None, None,
+                              1.0, False, False)
+    except ValueError:
+        pass
+    else:
+        exact.failures.append(f"K1: rows of {n + 1} did not raise")
     exact.raise_if_failed("kernel vs plain")
-    print(f"kernel vs plain: {len(cases) * 4 + 1} cases bit-exact")
+    print(f"kernel vs plain: {n_cases + 1} cases bit-exact up to n={n}, each "
+          f"launched twice to the same bits; rows of {n + 1} raise")
 
 
 def phase_slice_small(exact, dev):
@@ -537,21 +720,39 @@ def phase_slice_full(exact, kernels, dev):
         raise AssertionError(f"launch counts: sdf {sdf_launches}, bool "
                              f"{bool_launches}")
 
-    # K1 alone on the first parabolic pass's inputs (axis 1, w = 6)
+    # K1 alone on each parabolic pass's inputs: axis 1 (w = 6) after the
+    # closed form along axis 2, then axis 0 (w = 6) on its output
     f = compose._along_last(lambda lab: core.rp_pass_sq(lab, ANISO[2], True),
                             2, lt)
-    f2 = f.movedim(1, -1).contiguous().reshape(-1, FULL)
-    l2 = lt.movedim(1, -1).contiguous().reshape(-1, FULL)
-    ss, se = core.segment_bounds(l2)
     w2 = core.f32(ANISO[1] ** 2)
-    k1 = lambda: minplus.minplus_walls(f2, ss, se, w2, True, True)  # noqa: E731
-    k1_ms, _ = cuda_ms(k1, reps=20, warmup=2)
-    pl = lambda: minplus.minplus_walls_plain(f2, ss, se, w2, True, True)  # noqa: E731
-    plain_ms, _ = cuda_ms(pl, reps=3)
-    exact.check("512^3 K1 pass vs plain", k1(), pl())
+    k1_rows = []
+    for axis in (1, 0):
+        f2 = f.movedim(axis, -1).contiguous().reshape(-1, FULL)
+        l2 = lt.movedim(axis, -1).contiguous().reshape(-1, FULL)
+        ss, se = core.segment_bounds(l2)
+        del l2
+        k1 = lambda: minplus.minplus_walls(f2, ss, se, w2, True, True)  # noqa: E731
+        ms, _ = cuda_ms(k1, reps=20, warmup=2)
+        pl = lambda: minplus.minplus_walls_plain(f2, ss, se, w2, True, True)  # noqa: E731
+        pms, _ = cuda_ms(pl, reps=3)
+        d2 = k1()
+        exact.check(f"512^3 K1 pass axis {axis} vs plain", d2, pl())
+        if not torch.equal(d2.view(torch.int32), k1().view(torch.int32)):
+            exact.failures.append(f"512^3 K1 pass axis {axis}: two launches "
+                                  "differ")
+        emul, visited, steps, warp_steps = k1_search(f2, ss, se, w2, True, True)
+        exact.check(f"512^3 K1 pass axis {axis} vs its emulated search", d2,
+                    emul)
+        del emul
+        radius = k1_candidates(f2, ss, se, w2, True, True)
+        k1_rows.append((axis, ms, pms, k1_bound_ms(f2, ss, se, w2, True, True,
+                                                    visited),
+                        visited, radius, steps, warp_steps))
+        f = d2.reshape(f.movedim(axis, -1).shape).movedim(-1, axis)
+        del f2, ss, se, d2
     exact.raise_if_failed("K1 at 512^3")
-    bound_ms, bound_by = k1_bound_ms(f2, ss, se, w2, True, True)
-    cands = k1_candidates(f2, ss, se, w2, True, True)
+    del f
+    k1_ms, plain_ms, (bound_ms, bound_by) = k1_rows[0][1:4]
 
     profile(lambda: compose.edtsq(lt, ANISO, True, axis_order=order),
             f"{FULL}^3 edtsq (compose, device tensor)")
@@ -567,9 +768,12 @@ def phase_slice_full(exact, kernels, dev):
     print(f"{FULL}^3 K1 launches: edtsq {launches}, sdf {sdf_launches // 5}, "
           f"bool {bool_launches // 5}; peak device memory "
           f"{peak / 2**30:.2f} GiB")
-    print(f"K1 one pass {tuple(f2.shape)}: {k1_ms:.3f} ms, plain {plain_ms:.1f} "
-          f"ms, bound {bound_ms:.3f} ms ({bound_by}), "
-          f"{cands / f2.numel():.1f} candidates a voxel")
+    for axis, ms, pms, (bms, by), visited, radius, steps, warp_steps in k1_rows:
+        print(f"K1 pass along axis {axis} {(vox // FULL, FULL)}: {ms:.3f} ms, "
+              f"plain {pms:.1f} ms, bound {bms:.3f} ms ({by}); "
+              f"{visited / vox:.2f} candidates a voxel visited (the row "
+              f"radius holds {radius / vox:.1f}) in {steps / vox:.2f} steps "
+              f"a target, {warp_steps / vox:.2f} a warp's (its slowest of 32)")
     kernels.append({
         "name": "minplus_walls", "route": "cuda",
         "source": "edt_tpu_torch/csrc/minplus.cu",
@@ -1080,7 +1284,7 @@ def softmin_rows(rng, rows, n, w2):
 
 def check_k6(close6, name, f, d, g, w2, t):
     """K6 against its plain version on the same (f, d, g): df, and
-    sum(g * e) within rtol=1e-3."""
+    sum(g * e) within rtol=1e-3; a second launch gives the same bits."""
     from edt_tpu_torch.ops import softmin
 
     df, e = softmin.softmin_grad(f, d, g, w2, t)
@@ -1088,6 +1292,21 @@ def check_k6(close6, name, f, d, g, w2, t):
     close6.check(f"K6 df {name}", df, rdf)
     close6.check_sum(f"K6 sum(g e) {name}", (g * e).sum(), (g * re).sum(),
                      1e-3)
+    df2, e2 = softmin.softmin_grad(f, d, g, w2, t)
+    if not (torch.equal(df.view(torch.int32), df2.view(torch.int32))
+            and torch.equal(e.view(torch.int32), e2.view(torch.int32))):
+        close6.failures.append(f"K6 {name}: two launches differ")
+
+
+def distance_net_rows(rng, rows, n, scale):
+    """DistanceFieldNet-like heights: an untrained head's sigmoid
+    occupancy times the barrier ``scale`` (S^2 / 2), with the smooth
+    variation and the per-voxel noise of its logits, and one row of
+    sigmoid(+-large) plateaus."""
+    z = rng.normal(0, 1, (rows, n)) * 0.4
+    z += np.cumsum(rng.normal(0, 0.05, (rows, n)), axis=1)
+    z[-1] = np.where(np.arange(n) % 64 < 32, -8.0, 8.0)
+    return (scale / (1 + np.exp(-z))).astype(np.float32)
 
 
 def phase_softmin_kernel_cases(close5, close6, dev):
@@ -1111,6 +1330,16 @@ def phase_softmin_kernel_cases(close5, close6, dev):
                                      .astype(np.float32)).to(dev)
                 check_k6(close6, name, ft[:-1], rd[:-1], g, w2, t)
                 n_cases += 1
+    # DistanceFieldNet-like rows: heights of thousands, long windows
+    for t in (0.01, 0.3, 1.0):
+        ft = torch.from_numpy(distance_net_rows(rng, 24, 256, 256 * 256 / 2)).to(dev)
+        rd = softmin.softmin_plain(ft, 1.0, t)
+        close5.check(f"K5 DistanceFieldNet-like t={t}",
+                     softmin.softmin(ft, 1.0, t), rd)
+        g = torch.from_numpy(rng.uniform(-1, 1, ft.shape)
+                             .astype(np.float32)).to(dev)
+        check_k6(close6, f"DistanceFieldNet-like t={t}", ft, rd, g, 1.0, t)
+        n_cases += 1
     # one source a row, INF elsewhere: every window spans the row, and
     # d = w2 k^2, df = sum(g) at the source, e = k^2, exactly
     for n in (2049, softmin.GRAD_MAX_AXIS, softmin.MAX_AXIS):
@@ -1127,6 +1356,10 @@ def phase_softmin_kernel_cases(close5, close6, dev):
         g = torch.from_numpy(rng.uniform(-1, 1, (rows, n))
                              .astype(np.float32)).to(dev)
         df, e = softmin.softmin_grad(ft, d, g, 36.0, 0.3)
+        again = softmin.softmin_grad(ft, d, g, 36.0, 0.3)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip((df, e), again)):
+            close6.failures.append(f"K6 one source n={n}: two launches differ")
         ref_df = torch.zeros_like(g)
         ref_df[torch.arange(rows), torch.from_numpy(src)] = g.sum(dim=1)
         close6.check(f"K6 df one source n={n}", df, ref_df)
@@ -1144,7 +1377,9 @@ def phase_softmin_kernel_cases(close5, close6, dev):
     close5.raise_if_failed("K5 vs plain")
     close6.raise_if_failed("K6 vs plain")
     print(f"K5-K6 vs plain: {n_cases} cases and 3 one-source rows up to "
-          f"n={softmin.MAX_AXIS}; K5 within rtol={close5.rtol}, "
+          f"n={softmin.MAX_AXIS} (K6 up to its ceiling n="
+          f"{softmin.GRAD_MAX_AXIS}; each K6 case launched twice to the same "
+          f"bits; both raise beyond); K5 within rtol={close5.rtol}, "
           f"atol={close5.atol}: max abs err {close5.max_abs_err}; K6 df "
           f"within rtol={close6.rtol}, atol={close6.atol_rel} max|df|, "
           f"sum(g e) within rtol=1e-3: max abs err {close6.max_abs_err}")
@@ -1279,20 +1514,21 @@ def phase_softmin_full(close5, close6, kernels, dev):
     k6_plain_ms, _ = cuda_ms(k6_plain, reps=3)
     exps_per_s = sfu_exps_per_s()
     hard, terms5 = k5_work(f1, 1.0, SOFT_T)
-    terms6 = k6_work(f1, d1, 1.0, SOFT_T)
     # f32 operations: 4 a hard-min candidate (square, scale, add, min),
-    # 6 an exp term besides its exp (square, scale, add, sub, scale, sum),
-    # one more in K6 (the product with g or k^2)
+    # 6 an exp term besides its exp (square, scale, add, sub, scale, sum)
     k5_bound = bound_exp_ms(8 * f1.numel(), 4 * hard + 6 * terms5, terms5,
                             exps_per_s)
-    k6_bound = bound_exp_ms(20 * f1.numel(), 7 * terms6, terms6, exps_per_s)
+    k6_bound, needed6, visited6 = k6_bound_ms(f1, d1, 1.0, SOFT_T,
+                                              exps_per_s)
     vox1 = f1.numel()
     for name, ms_, pms, (bms, by, term), work in (
             ("K5", k5_ms, k5_plain_ms, k5_bound,
              f"{hard / vox1:.1f} hard-min candidates and {terms5 / vox1:.1f}"
              " exp terms a voxel"),
             ("K6", k6_ms, k6_plain_ms, k6_bound,
-             f"{terms6 / vox1:.1f} exp terms a voxel")):
+             f"{needed6 / vox1:.2f} pairs a voxel inside the cut (the bound's "
+             f"exps), {visited6 / vox1:.1f} candidates a voxel in the "
+             "kernel's windows")):
         print(f"{name} one pass {tuple(f1.shape)}: {ms_:.3f} ms, plain "
               f"{pms:.1f} ms, bound {bms:.3f} ms ({by}: {term}), {work}; "
               "no one-call library equivalent")
@@ -1369,10 +1605,11 @@ def check_kernels_vs_plain_step(close, make, make_step, feats, target, label):
           f"atol={close.atol}: max abs err {close.max_abs_err}")
 
 
-def phase_distance_net(close, dev):
+def phase_distance_net(close, close6, dev):
     """DistanceFieldNet at the widths of examples/train_distance_net.py:
-    one step through the kernels against the plain path at 2 x 128^3, and
-    5 timed steps at 2 x 256^3 on one synthetic batch."""
+    one step through the kernels against the plain path at 2 x 128^3, 5
+    timed steps at 2 x 256^3 on one synthetic batch, and K6 alone on that
+    step's three passes."""
     from edt_tpu_torch.models import distance_net, soft
 
     def make():
@@ -1417,6 +1654,48 @@ def phase_distance_net(close, dev):
     print(f"DistanceFieldNet first pass {tuple(f0.shape)}: K5 scans "
           f"{hard / f0.numel():.1f} hard-min candidates and "
           f"{terms / f0.numel():.1f} exp terms a voxel")
+    del f0
+    distance_net_k6(close6, make_step, model, feats, target)
+
+
+def distance_net_k6(close6, make_step, model, feats, target):
+    """K6 alone on the DistanceFieldNet step's own three pass inputs,
+    captured by a step through a recording soft.Kernels: each launch's ms,
+    its bound (the pairs inside the cut) and its plain-version check."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import softmin
+
+    S = TRAIN_FULL
+    seen = []
+
+    def recording_grad(f, d, g, w2, t):
+        seen.append((f.clone(), d.clone(), g.clone(), w2, t))
+        return softmin.softmin_grad(f, d, g, w2, t)
+
+    _, step = make_step(model, soft.Kernels(softmin_grad=recording_grad), S)
+    step(feats, target)
+    if len(seen) != 3:
+        raise AssertionError(f"DistanceFieldNet step recorded {len(seen)} "
+                             "K6 inputs, expected 3")
+    exps_per_s = sfu_exps_per_s()
+    times = []
+    for k, (f, d, g, w2, t) in enumerate(seen):
+        check_k6(close6, f"DistanceFieldNet pass {k}", f, d, g, w2, t)
+        ms, _ = cuda_ms(lambda: softmin.softmin_grad(f, d, g, w2, t),  # noqa: B023
+                        reps=10, warmup=2)
+        pms, _ = cuda_ms(lambda: softmin.softmin_grad_plain(f, d, g, w2, t),  # noqa: B023
+                         reps=2)
+        (bms, by, term), needed, visited = k6_bound_ms(f, d, w2, t, exps_per_s)
+        times.append(ms)
+        print(f"K6 DistanceFieldNet pass {k} {tuple(f.shape)} (w2 {w2:g}, "
+              f"t {t:g}): {ms:.3f} ms, plain {pms:.1f} ms, bound {bms:.3f} ms "
+              f"({by}: {term}); {needed / f.numel():.2f} pairs a voxel inside "
+              f"the cut, {visited / f.numel():.1f} candidates a voxel in the "
+              "kernel's windows")
+    close6.raise_if_failed("K6 on the DistanceFieldNet passes")
+    print(f"K6 on the DistanceFieldNet step's passes: mean {np.mean(times):.3f} "
+          f"ms a launch, within rtol={close6.rtol}, atol={close6.atol_rel} "
+          "max|df| of the plain version, two launches the same bits")
 
 
 def phase_unet3d(close, dev):
@@ -1522,7 +1801,7 @@ def main() -> int:
               ("softmin 256^3",
                lambda: phase_softmin_full(close5, close6, kernels, dev)),
               ("DistanceFieldNet trainer",
-               lambda: phase_distance_net(close_train, dev)),
+               lambda: phase_distance_net(close_train, close6, dev)),
               ("UNet3D trainer", lambda: phase_unet3d(close_train, dev))]
     for name, fn in phases:
         t = time.perf_counter()

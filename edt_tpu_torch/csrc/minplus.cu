@@ -13,26 +13,53 @@
 // parabolas when black_border. Background needs no zeroing: it carries
 // f == 0, and the candidate j == i pins it to 0.
 //
-// Design (first version: right and simple). One block per row. The row's f
-// is staged in dynamic shared memory; a block reduction gives the row's
-// floor minf and bound = max_i min(f_i, wall_i), and from them the
-// pruning radius exactly as _radius_gap/_radius_from_gap form it. Each
-// thread takes targets i = tid, tid + blockDim, ... and scans
-// j in [i - r, i + r] ∩ [0, n), clipped in the masked case to i's own
-// segment [ss_i, se_i): candidates outside it never beat the walls. A
-// per-row radius is looser than the TPU's per-tile one, so it prunes only
-// candidates that cannot win, and the values are unchanged.
+// Design. A row belongs to a group of G threads, G a multiple of 32 chosen
+// by the host so that each thread holds at most kRegTargets = 16 targets
+// (G = 32 for rows up to 512: one warp a row, two rows a block; up to 256
+// threads for rows up to 4096). Thread t of the group owns the targets
+// i = t, t + G, ..., so every global access is coalesced, and issues the
+// loads of eight of its targets before it uses any of them. The row's f is
+// staged in dynamic shared memory (4 B a voxel: the axis ceiling is the
+// opt-in shared memory over 4). ss and se are read once, in the staging
+// loop, and kept as the target's reach into its segment, kl = i - ss and
+// kr = se - 1 - i, packed in one register (16 bits each); its wall is formed
+// from them (binary rows are one segment, ss = 0, se = n). Targets beyond
+// the sixteenth of a thread (rows longer than 4096) park the packed reach
+// in their own slot of d, which the thread overwrites with the result. A
+// group reduces the row's floor minf and bound = max_i min(f_i, wall_i) with
+// warp shuffles and, for groups of several warps, one exchange through
+// shared memory in which every thread reads all of its row's parts: no
+// thread finishes the reduction alone. Every thread then forms the row
+// radius r exactly as _radius_gap and _radius_from_gap do: it caps every
+// search, so no row scans more than the first version did, and an all-INF
+// row keeps radius 0. A row held by one warp (multi-label rows up to 512)
+// also finds each segment's min f (one redux.sync a segment in each 32
+// voxels, carried forward and handed back across them) and keeps it beside
+// f in shared memory: the floor of its targets' stops.
+//
+// Each target searches outward inside its segment, k = 0, 1, ...,
+// min(r, max(kl, kr)), with q_k = __fmul_rn(w2, __fmul_rn(k, k)) formed
+// once a step for both candidates j = i - k (k <= kl) and j = i + k
+// (k <= kr), and stops before step k once __fadd_rn(lb, q_k) >
+// min(best, wall_i), lb the floor (the segment's min f, or the row's):
+// rounding is monotone and f_j >= lb, so every candidate left costs more
+// than what the target already holds. min ignores order, so no tie rule
+// is needed, and the value is the first version's scan over the same
+// window, bit for bit. A target takes about sqrt((min(f_i, wall_i) - lb) /
+// w2) steps instead of r: none where its segment's heights are flat.
 //
 // Exactness: every cost is __fadd_rn(f_j, __fmul_rn(w2, __fmul_rn(k, k)))
-// with k a float, two roundings as in the reference (built with
-// -fmad=false as well), and the radius uses IEEE division and sqrt.
+// with k a float, two roundings as in the reference (built with -fmad=false
+// as well), and the radius uses IEEE division and sqrt.
 //
 // Bound on the card: HBM bytes. f, ss and se are read once and d written
-// once: 16 B a voxel (4 for binary's f plus 4 for d: 8 B). The work is
-// about (2 r + 1) candidates a voxel, a few flops each, far under the
-// bytes at the radii of real volumes. This version does nothing yet to
-// reach that bound: one row per block leaves loads uncoalesced across
-// rows and threads idle in short rows, and thread loops diverge.
+// once: 16 B a voxel (binary: 8 B). A search step costs about twenty
+// instructions for two candidates, and a warp runs until the slowest of its
+// 32 adjacent targets stops. Where segments hold flat heights (the 512^3
+// bench volume) the searches take almost no step; what remains over the
+// bound is each target's fixed work (its reach and wall, its segment's
+// min, the search's set-up) and the latency of its loads, in a share not
+// measured.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,10 +68,92 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kRegTargets = 16;  // targets a thread keeps in registers
 
 __device__ __forceinline__ float sq_wall(float w2, int k) {
   const float kf = (float)k;
   return __fmul_rn(w2, __fmul_rn(kf, kf));
+}
+
+// The wall of target i from its reach kl = i - ss, kr = se - 1 - i: the
+// segment walls w2 (kl + 1)^2 and w2 (kr + 1)^2, an open row end INF
+// unless black_border. Binary rows (ss = 0, se = n) get the border
+// parabolas with black_border, INF without.
+__device__ __forceinline__ float wall_of(int i, int kl, int kr, int n,
+                                         float w2, bool black_border) {
+  const float lw = (black_border || kl < i) ? sq_wall(w2, kl + 1) : INFINITY;
+  const float rw = (black_border || kr < n - 1 - i) ? sq_wall(w2, kr + 1)
+                                                    : INFINITY;
+  return fminf(lw, rw);
+}
+
+// min(wall, min_j f_j + w2 (i - j)^2 over i - kl <= j <= i + kr) by the
+// outward search, stopped exactly; lb <= every f_j of that window.
+__device__ __forceinline__ float search(const float* s_f, int i, int packed,
+                                        int n, int radius, float lb,
+                                        float w2, bool black_border) {
+  const int kl = packed & 0xffff, kr = (unsigned)packed >> 16;
+  const int kmax = min(radius, max(kl, kr));
+  float best = fminf(__fadd_rn(s_f[i], __fmul_rn(w2, 0.0f)),
+                     wall_of(i, kl, kr, n, w2, black_border));
+  float kf = 0.0f;
+  for (int k = 1; k <= kmax; ++k) {
+    kf = __fadd_rn(kf, 1.0f);
+    const float q = __fmul_rn(w2, __fmul_rn(kf, kf));
+    if (__fadd_rn(lb, q) > best) break;  // nothing further goes below best
+    if (k <= kl) best = fminf(best, __fadd_rn(s_f[i - k], q));
+    if (k <= kr) best = fminf(best, __fadd_rn(s_f[i + k], q));
+  }
+  return best;
+}
+
+// f as an unsigned key of the same order, and back.
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((b >> 31) ? 0xffffffffu : 0x80000000u);
+}
+__device__ __forceinline__ float from_key(unsigned k) {
+  return __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// The min of f over each target's segment, into s_lb, for a row held by
+// one warp (lane l owns i = l + 32 m). In each 32 voxels the lanes of a
+// segment, [l - kl, l + kr] within the 32, reduce their f with one
+// redux.sync; a forward pass carries the min of a segment that began
+// before, a backward pass hands the whole segment's min back from the 32
+// voxels where it ends.
+__device__ __forceinline__ void segment_mins(const float* s_f, float* s_lb,
+                                             const int* packed, int n,
+                                             int lane) {
+  float carry = INFINITY;
+#pragma unroll
+  for (int m = 0; m < kRegTargets; ++m) {
+    if (32 * m >= n) break;
+    const int i = lane + 32 * m;
+    const int kl = packed[m] & 0xffff, kr = (unsigned)packed[m] >> 16;
+    const int lo = max(0, lane - kl), hi = min(31, lane + kr);
+    const unsigned group = (0xffffffffu >> (31 - hi)) & (0xffffffffu << lo);
+    float v = from_key(__reduce_min_sync(group, order_key(i < n ? s_f[i] : INFINITY)));
+    if (kl > lane) v = fminf(v, carry);  // the segment began before
+    if (i < n) s_lb[i] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+  carry = INFINITY;
+#pragma unroll
+  for (int m = kRegTargets - 1; m >= 0; --m) {
+    if (32 * m >= n) continue;
+    const int i = lane + 32 * m;
+    const int kr = (unsigned)packed[m] >> 16;
+    float v = i < n ? s_lb[i] : INFINITY;
+    if (kr > 31 - lane) v = carry;  // the segment goes on: its min is there
+    if (i < n) s_lb[i] = v;
+    carry = __shfl_sync(0xffffffffu, v, 0);
+  }
+}
+
+// Target i's reach into its segment [s, e): kl = i - s, kr = e - 1 - i.
+__device__ __forceinline__ int reach(int i, int s, int e) {
+  return (int)((unsigned)(i - s) | ((unsigned)(e - 1 - i) << 16));
 }
 
 template <bool kMasked>
@@ -52,108 +161,132 @@ __global__ void __launch_bounds__(kMaxThreads)
 minplus_walls_kernel(const float* __restrict__ f,
                      const int32_t* __restrict__ ss,
                      const int32_t* __restrict__ se,
-                     float* __restrict__ out, int n, float w2,
-                     bool black_border) {
-  extern __shared__ float s_f[];
+                     float* __restrict__ out, long long rows, int n,
+                     int group, float w2, bool black_border) {
+  extern __shared__ float smem[];
   __shared__ float s_minf[kMaxThreads / 32];
   __shared__ float s_bound[kMaxThreads / 32];
-  __shared__ int s_radius;
 
-  const size_t base = (size_t)blockIdx.x * (size_t)n;
-  const float* fr = f + base;
-  const int32_t* ssr = kMasked ? ss + base : nullptr;
-  const int32_t* ser = kMasked ? se + base : nullptr;
-  float* outr = out + base;
+  const int g = threadIdx.x / group;  // the row within the block
+  const int t = threadIdx.x - g * group;  // the thread within the row
+  const long long row = (long long)blockIdx.x * (blockDim.x / group) + g;
+  const bool valid = row < rows;
+  const size_t base = (size_t)(valid ? row : 0) * (size_t)n;
+  // a warp's row keeps its segments' mins beside f
+  const bool warp_row = kMasked && group == 32;
+  float* s_f = smem + (size_t)g * n * (warp_row ? 2 : 1);
+  float* s_lb = s_f + n;
+  int* parked = reinterpret_cast<int*>(out) + base;
 
-  // --- stage f, reduce the row's floor and bound ---
+  // --- stage f, read ss/se once into the reach, reduce floor and bound;
+  // the loads of each half of a thread's targets go out before any is used
   float minf = INFINITY;
   float bound = -INFINITY;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float fi = fr[i];
+  int packed[kRegTargets];
+  constexpr int kHalf = kRegTargets / 2;
+#pragma unroll
+  for (int h = 0; h < kRegTargets; h += kHalf) {
+    float fh[kHalf];
+    int sh[kHalf], eh[kHalf];
+#pragma unroll
+    for (int q = 0; q < kHalf; ++q) {
+      const int i = t + (h + q) * group;
+      if (valid && i < n) {
+        fh[q] = __ldg(f + base + i);
+        sh[q] = kMasked ? __ldg(ss + base + i) : 0;
+        eh[q] = kMasked ? __ldg(se + base + i) : n;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kHalf; ++q) {
+      const int i = t + (h + q) * group;
+      packed[h + q] = 0;
+      if (valid && i < n) {
+        s_f[i] = fh[q];
+        minf = fminf(minf, fh[q]);
+        packed[h + q] = reach(i, sh[q], eh[q]);
+        bound = fmaxf(bound, fminf(fh[q], wall_of(i, i - sh[q], eh[q] - 1 - i,
+                                                  n, w2, black_border)));
+      }
+    }
+  }
+  // rows longer than kRegTargets * group: the reach waits in d's own slot
+  for (int i = t + kRegTargets * group; valid && i < n; i += group) {
+    const float fi = f[base + i];
     s_f[i] = fi;
     minf = fminf(minf, fi);
-    float b = fi;
-    if (kMasked) {
-      const int s = ssr[i], e = ser[i];
-      const float lw = (black_border || s > 0) ? sq_wall(w2, i - s + 1) : INFINITY;
-      const float rw = (black_border || e < n) ? sq_wall(w2, e - i) : INFINITY;
-      b = fminf(fi, fminf(lw, rw));
-    } else if (black_border) {
-      b = fminf(fi, fminf(sq_wall(w2, i + 1), sq_wall(w2, n - i)));
-    }
-    bound = fmaxf(bound, b);
+    const int p = reach(i, kMasked ? ss[base + i] : 0, kMasked ? se[base + i] : n);
+    parked[i] = p;
+    bound = fmaxf(bound, fminf(fi, wall_of(i, p & 0xffff, (unsigned)p >> 16,
+                                           n, w2, black_border)));
   }
   for (int off = 16; off > 0; off >>= 1) {
     minf = fminf(minf, __shfl_xor_sync(0xffffffffu, minf, off));
     bound = fmaxf(bound, __shfl_xor_sync(0xffffffffu, bound, off));
   }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s_minf[warp] = minf;
-    s_bound[warp] = bound;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 1; k < (int)(blockDim.x >> 5); ++k) {
+  if (group > 32) {  // every thread reads all parts of its row's warps
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      s_minf[warp] = minf;
+      s_bound[warp] = bound;
+    }
+    __syncthreads();
+    const int first = g * (group >> 5);
+    for (int k = first; k < first + (group >> 5); ++k) {
       minf = fminf(minf, s_minf[k]);
       bound = fmaxf(bound, s_bound[k]);
     }
-    // _radius_gap: all-INF rows need no candidates beyond j == i; a row
-    // with an infinite bound over finite candidates scans in full
-    float gap = __fsub_rn(bound, minf);
-    if (isfinite(gap)) {
-      gap = fmaxf(gap, 0.0f);
-    } else {
-      gap = (minf == INFINITY) ? 0.0f : INFINITY;
-    }
-    // _radius_from_gap: ulp-guarded floor, clamped to n before the cast
-    float r = __fadd_rn(__fmul_rn(__fsqrt_rn(__fdiv_rn(gap, w2)), 1.00001f), 0.01f);
-    r = fminf(r, (float)n);
-    s_radius = (int)r;
+  } else {
+    __syncwarp();
   }
-  __syncthreads();
-  const int radius = s_radius;
+  if (!valid) return;
+  if (warp_row) segment_mins(s_f, s_lb, packed, n, t);
 
-  // --- pruned min-plus over each target's window, then the walls ---
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int lo = max(0, i - radius);
-    int hi = min(n, i + radius + 1);
-    int s = 0, e = n;
-    if (kMasked) {
-      s = ssr[i];
-      e = ser[i];
-      lo = max(lo, s);
-      hi = min(hi, e);
-    }
-    float acc = INFINITY;
-    for (int j = lo; j < hi; ++j) {
-      acc = fminf(acc, __fadd_rn(s_f[j], sq_wall(w2, i - j)));
-    }
-    if (kMasked) {
-      const float lw = (black_border || s > 0) ? sq_wall(w2, i - s + 1) : INFINITY;
-      const float rw = (black_border || e < n) ? sq_wall(w2, e - i) : INFINITY;
-      acc = fminf(acc, fminf(lw, rw));
-    } else if (black_border) {
-      acc = fminf(acc, __fmul_rn(w2, fminf(__fmul_rn((float)(i + 1), (float)(i + 1)),
-                                           __fmul_rn((float)(n - i), (float)(n - i)))));
-    }
-    outr[i] = acc;
+  // _radius_gap: all-INF rows need no candidates beyond j == i; a row with
+  // an infinite bound over finite candidates may search in full
+  float gap = __fsub_rn(bound, minf);
+  if (isfinite(gap)) {
+    gap = fmaxf(gap, 0.0f);
+  } else {
+    gap = (minf == INFINITY) ? 0.0f : INFINITY;
   }
+  // _radius_from_gap: ulp-guarded floor, clamped to n before the cast
+  float rf = __fadd_rn(__fmul_rn(__fsqrt_rn(__fdiv_rn(gap, w2)), 1.00001f), 0.01f);
+  rf = fminf(rf, (float)n);
+  const int radius = (int)rf;
+
+  // --- each target's outward search in its segment, stopped exactly ---
+#pragma unroll
+  for (int m = 0; m < kRegTargets; ++m) {
+    const int i = t + m * group;
+    if (i < n)
+      out[base + i] = search(s_f, i, packed[m], n, radius,
+                             warp_row ? s_lb[i] : minf, w2, black_border);
+  }
+  for (int i = t + kRegTargets * group; i < n; i += group)
+    out[base + i] = search(s_f, i, parked[i], n, radius, minf, w2,
+                           black_border);
 }
 
 template <bool kMasked>
 cudaError_t launch(const float* f, const int32_t* ss, const int32_t* se,
                    float* out, long long rows, int n, float w2,
                    bool black_border, cudaStream_t stream) {
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = (size_t)n * sizeof(float);
+  // G threads a row, at most kRegTargets targets each up to 4096; short
+  // rows share a block of 64 threads (small blocks measured fastest)
+  int group = ((n + 32 * kRegTargets - 1) / (32 * kRegTargets)) * 32;
+  if (group > kMaxThreads) group = kMaxThreads;
+  const int per_block = group >= 64 ? 1 : 64 / group;
+  const size_t row_floats = (kMasked && group == 32 ? 2 : 1) * (size_t)n;
+  const size_t smem = (size_t)per_block * row_floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       minplus_walls_kernel<kMasked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  minplus_walls_kernel<kMasked><<<(unsigned)rows, threads, smem, stream>>>(
-      f, ss, se, out, n, w2, black_border);
+  const long long blocks = (rows + per_block - 1) / per_block;
+  minplus_walls_kernel<kMasked><<<(unsigned)blocks, per_block * group, smem,
+                                  stream>>>(f, ss, se, out, rows, n, group, w2,
+                                            black_border);
   return cudaGetLastError();
 }
 

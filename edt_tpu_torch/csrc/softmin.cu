@@ -27,39 +27,57 @@
 // Dividing by Z_i cancels it, so the weights depend on d only through the
 // cut: the same weights whatever computed d, K5 or the plain logsumexp.
 //
-// Design (first version: right and simple). One block per row, 256 threads
-// at most; each thread owns the positions tid, tid + blockDim, ...
+// Design.
 //
-// - K5 stages f in dynamic shared memory (4 B a voxel) and reduces the
-//   row's floor minf. Each target scans outward from k = 0 for the hard
-//   min and stops at the first k with w2 k^2 > dmin_i - minf (no farther
-//   candidate can go below dmin_i: cost >= minf + w2 k^2). It then sums the
-//   exps outward while w2 k^2 <= dmin_i + 30 t - minf: a per-target radius,
-//   the TPU's per-tile radius (_softmin_kernel's gap_s) taken one target at
-//   a time. Every term it leaves out has cost - dmin > 30 t, so the result
-//   is the TPU's to f32 round-off.
-// - K6 stages f, d and g (12 B a voxel) and reduces minf and maxd = max_i
-//   d_i. First, as a target i, a thread gathers Z_i and e_i over the
-//   sources j with w2 k^2 <= d_i + 30 t - minf, and replaces g_i in shared
-//   memory by g_i / Z_i. After a barrier, as a source j, it gathers df_j
-//   over the targets i with w2 k^2 <= maxd + 30 t - f_j. Both are gathers,
-//   with no atomics: the result is the same from run to run. Every term
-//   left out has a weight below exp(-30). The weight's exponent is formed
-//   as (d_i - (f_j + w2 k^2)) / t, the rounding order of the plain
-//   version.
+// - K5 (first version: right and simple). One block per row, 256 threads
+//   at most; each thread owns the positions tid, tid + blockDim, ... It
+//   stages f in dynamic shared memory (4 B a voxel) and reduces the row's
+//   floor minf. Each target scans outward from k = 0 for the hard min and
+//   stops at the first k with w2 k^2 > dmin_i - minf (no farther candidate
+//   can go below dmin_i: cost >= minf + w2 k^2). It then sums the exps
+//   outward while w2 k^2 <= dmin_i + 30 t - minf: a per-target radius, the
+//   TPU's per-tile radius (_softmin_kernel's gap_s) taken one target at a
+//   time. Every term it leaves out has cost - dmin > 30 t, so the result is
+//   the TPU's to f32 round-off. Exps and logs are the accurate expf and
+//   logf.
+// - K6. One warp a row, four rows a block. The warp stages the row's f in
+//   shared memory beside a df accumulator of the row (8 B a voxel: the axis
+//   ceiling is the opt-in shared memory over 8), reduces minf with shuffles,
+//   and takes the targets 32 at a time, lane l the target i = i0 + l, its
+//   d_i and g_i in registers (the next 32 loaded ahead). Each target has
+//   its own window, the k with w2 k^2 <= d_i + 30 t - minf, and in it the
+//   pairs with x = d_i - cost_ij >= -30 t: the pairs that carry a weight
+//   above exp(-30); the row's largest d plays no part. First the lane walks
+//   the window and sums Z_i and e_i over those pairs, keeping the weights
+//   of its first kHeld = 4 steps in registers and noting the last step kin
+//   that holds a pair. Then, Z_i complete, it scatters (g_i / Z_i) p_ij
+//   into the accumulator at every j of the same pairs, one k at a time for
+//   the warp up to the largest kin of its lanes: the j = i + k of all 32
+//   lanes (distinct), then the j = i - k (distinct), with __syncwarp
+//   between, so every df_j sums its terms in one fixed order, with no
+//   atomics, and df is the same from launch to launch. The held weights
+//   are scattered as they are; a pair further out is formed again, the
+//   same way, and tested against the cut again, so the weights summed
+//   into Z_i are the ones scattered. A weight takes no division:
+//   ex2.approx of x * log2(e) / t, the factor formed once; Z_i takes one
+//   reciprocal a target.
 //
-// The axis ceilings are the opt-in shared memory over 4 (K5) and over 12
+// The axis ceilings are the opt-in shared memory over 4 (K5) and over 8
 // (K6). Costs round twice, __fadd_rn(f, __fmul_rn(w2, __fmul_rn(k, k))), as
-// in K1 and K2 (built with -fmad=false as well); exps and logs are the
-// accurate expf and logf.
+// in K1 and K2 (built with -fmad=false as well).
 //
 // Bound on the card: K5 reads f and writes d (8 B a voxel), K6 reads f, d
 // and g and writes df and e (20 B a voxel). The work is one exp a term
 // inside the cut (plus, for K5, the hard-min candidates), so the
-// special-function units bind where the radii are long and the bytes where
-// they are short. This version does nothing yet to reach either bound: one
-// row per block leaves loads uncoalesced across rows, threads of a warp wait
-// for the longest radius among them, and K6 pays two exps a pair.
+// special-function units bind where the cut holds many terms and the bytes
+// where it holds few. K5 does nothing yet to reach either bound: one row per
+// block leaves loads uncoalesced across rows, and threads of a warp wait for
+// the longest radius among them. K6 pays one exp a pair inside the cut
+// within its first kHeld steps and two further out (Z_i, then df), and its
+// first pass walks the whole window: a candidate between minf and the cut
+// costs a load and a compare. Long windows over few pairs (an untrained
+// DistanceFieldNet's first pass: 36 candidates for one pair a voxel) are
+// what is left of its time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -145,79 +163,141 @@ softmin_kernel(const float* __restrict__ f, float* __restrict__ out, int n,
   }
 }
 
-// The weight p of a target at d and a candidate at cost c.
-__device__ __forceinline__ float weight(float d, float c, float t) {
-  return expf(__fdiv_rn(__fsub_rn(d, c), t));
+constexpr int kGradRows = 4;  // K6: rows a block, one warp each
+constexpr int kHeld = 4;  // K6: steps whose weights a lane keeps for the scatter
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// The weight of target i's pair at cost fj + q, or 0 outside the cut
+// (x = d_i - cost < -30 t); a weight is summed into z and acc_e.
+__device__ __forceinline__ float take(float di, float fj, float q, float kk,
+                                      float ncut, float scale, float& z,
+                                      float& acc_e) {
+  const float x = __fsub_rn(di, __fadd_rn(fj, q));
+  if (!(x >= ncut)) return 0.0f;
+  const float p = ex2(__fmul_rn(x, scale));
+  z = __fadd_rn(z, p);
+  acc_e = __fmaf_rn(p, kk, acc_e);
+  return p;
+}
+
+__global__ void __launch_bounds__(32 * kGradRows)
 softmin_grad_kernel(const float* __restrict__ f, const float* __restrict__ d,
                     const float* __restrict__ g, float* __restrict__ df,
-                    float* __restrict__ e, int n, float w2, float t) {
+                    float* __restrict__ e, long long rows, int n, float w2,
+                    float t) {
   extern __shared__ float smem[];
-  float* s_f = smem;
-  float* s_d = smem + n;
-  float* s_g = smem + 2 * n;
-  const size_t base = (size_t)blockIdx.x * (size_t)n;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp: no block-wide barrier follows
+  const size_t base = (size_t)row * (size_t)n;
+  float* s_f = smem + (size_t)(threadIdx.x >> 5) * 2 * n;
+  float* s_df = s_f + n;
 
   float minf = INFINITY;
-  float maxd = -INFINITY;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float fi = f[base + i];
-    const float di = d[base + i];
-    s_f[i] = fi;
-    s_d[i] = di;
-    s_g[i] = g[base + i];
-    minf = fminf(minf, fi);
-    maxd = fmaxf(maxd, di);
+  for (int j = lane; j < n; j += 32) {
+    const float fj = f[base + j];
+    s_f[j] = fj;
+    s_df[j] = 0.0f;
+    minf = fminf(minf, fj);
   }
-  block_min_max(minf, maxd);
+  for (int off = 16; off > 0; off >>= 1)
+    minf = fminf(minf, __shfl_xor_sync(0xffffffffu, minf, off));
+  __syncwarp();
 
   const float cut = __fmul_rn(kSoftCut, t);
-  // Z_i and e_i: x is the target i. A NaN gap (an all-INF row) takes no
-  // term, and then g_i / Z_i reads as 0.
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const int kmax = max(x, n - 1 - x);
-    const float di = s_d[x];
-    const float gap_i = __fsub_rn(__fadd_rn(di, cut), minf);
-    float z = 0.0f;
-    float acc_e = 0.0f;
-    for (int k = 0; k <= kmax; ++k) {
-      const float q = quad(w2, k);
-      if (!(q <= gap_i)) break;
-      const float kk = (float)k * (float)k;
-      if (x - k >= 0) {
-        const float p = weight(di, __fadd_rn(s_f[x - k], q), t);
-        z += p;
-        acc_e += p * kk;
-      }
-      if (k > 0 && x + k < n) {
-        const float p = weight(di, __fadd_rn(s_f[x + k], q), t);
-        z += p;
-        acc_e += p * kk;
-      }
+  const float ncut = -cut;
+  const float scale = __fdiv_rn(kLog2e, t);  // exponents in base 2
+  float d_next = lane < n ? d[base + lane] : 0.0f;
+  float g_next = lane < n ? g[base + lane] : 0.0f;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const float di = d_next, gi = g_next;
+    if (i + 32 < n) {
+      d_next = d[base + i + 32];
+      g_next = g[base + i + 32];
     }
-    e[base + x] = z > 0.0f ? acc_e / z : 0.0f;
-    s_g[x] = z > 0.0f ? s_g[x] / z : 0.0f;  // only this thread reads s_g[x] here
-  }
-  __syncthreads();
+    // the target's window: w2 k^2 <= d_i + 30 t - minf. A NaN gap (an
+    // all-INF row) takes no step, and then Z_i = 0 gives e_i = g_i / Z_i = 0.
+    const float gap = __fsub_rn(__fadd_rn(di, cut), minf);
+    const int kcap = i < n ? max(i, n - 1 - i) : -1;
 
-  // df: x is the source j. -INF (f_j INF) or NaN takes no term.
-  const float top = __fadd_rn(maxd, cut);
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const int kmax = max(x, n - 1 - x);
-    const float fj = s_f[x];
-    const float gap_j = __fsub_rn(top, fj);
-    float acc = 0.0f;
-    for (int k = 0; k <= kmax; ++k) {
-      const float q = quad(w2, k);
-      if (!(q <= gap_j)) break;
-      const float c = __fadd_rn(fj, q);
-      if (x - k >= 0) acc += s_g[x - k] * weight(s_d[x - k], c, t);
-      if (k > 0 && x + k < n) acc += s_g[x + k] * weight(s_d[x + k], c, t);
+    // Z_i and e_i over the pairs of the window inside the cut; the weights
+    // of the first kHeld steps stay in registers, and kin is the last step
+    // with a pair inside the cut
+    float z = 0.0f, acc_e = 0.0f, kf = 0.0f;
+    float held_r[kHeld], held_l[kHeld];  // (i, i + k), (i, i - k); 0: outside
+    int steps = 0, kin = -1;
+    bool go = true;
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const float kk = __fmul_rn(kf, kf);
+      const float q = __fmul_rn(w2, kk);
+      go = go && k <= kcap && q <= gap;
+      // the centre (k = 0) counts as the right side
+      held_l[k] = go && k > 0 && k <= i
+                      ? take(di, s_f[i - k], q, kk, ncut, scale, z, acc_e) : 0.0f;
+      held_r[k] = go && k == 0 ? take(di, s_f[i], q, kk, ncut, scale, z, acc_e)
+                  : go && i + k < n
+                      ? take(di, s_f[i + k], q, kk, ncut, scale, z, acc_e) : 0.0f;
+      if (held_l[k] > 0.0f || held_r[k] > 0.0f) kin = k;
+      if (go) steps = k + 1;
+      kf = __fadd_rn(kf, 1.0f);
     }
-    df[base + x] = acc;
+    for (; go && steps <= kcap; ++steps) {
+      const float kk = __fmul_rn(kf, kf);
+      const float q = __fmul_rn(w2, kk);
+      if (!(q <= gap)) break;
+      if (steps <= i && take(di, s_f[i - steps], q, kk, ncut, scale, z, acc_e) > 0.0f)
+        kin = steps;
+      if (i + steps < n && take(di, s_f[i + steps], q, kk, ncut, scale, z, acc_e) > 0.0f)
+        kin = steps;
+      kf = __fadd_rn(kf, 1.0f);
+    }
+    float gz = 0.0f;
+    if (z > 0.0f) {
+      const float rz = __frcp_rn(z);
+      gz = __fmul_rn(gi, rz);
+      acc_e = __fmul_rn(acc_e, rz);
+    }
+    if (i < n) e[base + i] = acc_e;
+
+    // df: the same pairs scattered up to the warp's last step inside the
+    // cut, in ascending k, the j = i + k of the 32 lanes (distinct), then
+    // their j = i - k (distinct); held weights first, then recomputed
+    const int warp_steps = __reduce_max_sync(0xffffffffu, kin + 1);
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      if (k >= warp_steps) break;
+      if (held_r[k] > 0.0f) s_df[i + k] = __fmaf_rn(gz, held_r[k], s_df[i + k]);
+      __syncwarp();
+      if (held_l[k] > 0.0f) s_df[i - k] = __fmaf_rn(gz, held_l[k], s_df[i - k]);
+      __syncwarp();
+    }
+    kf = (float)kHeld;
+    for (int k = kHeld; k < warp_steps; ++k) {
+      const float q = __fmul_rn(w2, __fmul_rn(kf, kf));
+      const bool on = k <= kin;
+      if (on && i + k < n) {
+        const float x = __fsub_rn(di, __fadd_rn(s_f[i + k], q));
+        if (x >= ncut) s_df[i + k] = __fmaf_rn(gz, ex2(__fmul_rn(x, scale)), s_df[i + k]);
+      }
+      __syncwarp();
+      if (on && k <= i) {
+        const float x = __fsub_rn(di, __fadd_rn(s_f[i - k], q));
+        if (x >= ncut) s_df[i - k] = __fmaf_rn(gz, ex2(__fmul_rn(x, scale)), s_df[i - k]);
+      }
+      __syncwarp();
+      kf = __fadd_rn(kf, 1.0f);
+    }
   }
+  __syncwarp();
+  for (int j = lane; j < n; j += 32) df[base + j] = s_df[j];
 }
 
 int threads_for(int n) {
@@ -246,15 +326,21 @@ int edt_softmin(const void* f, void* out, long long rows, int n, float w2,
 int edt_softmin_grad(const void* f, const void* d, const void* g, void* df,
                      void* e, long long rows, int n, float w2, float t,
                      void* stream) {
-  const size_t smem = 3 * (size_t)n * sizeof(float);
+  // up to kGradRows rows a block, as many as the opt-in shared memory holds
+  const size_t row_bytes = 2 * (size_t)n * sizeof(float);
+  int per_block = (int)(232448 / row_bytes);
+  if (per_block > kGradRows) per_block = kGradRows;
+  if (per_block < 1) per_block = 1;
+  const size_t smem = (size_t)per_block * row_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       softmin_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  softmin_grad_kernel<<<(unsigned)rows, threads_for(n), smem,
+  const long long blocks = (rows + per_block - 1) / per_block;
+  softmin_grad_kernel<<<(unsigned)blocks, 32 * per_block, smem,
                         (cudaStream_t)stream>>>(
       (const float*)f, (const float*)d, (const float*)g, (float*)df,
-      (float*)e, n, w2, t);
+      (float*)e, rows, n, w2, t);
   return (int)cudaGetLastError();
 }
 

@@ -168,14 +168,16 @@ def _k3_links(kind, n, rng):
 @pytest.mark.parametrize("kind", ["non-monotone", "one-target", "leaving"])
 def test_grad_kernel_any_links(cuda, kind):
     """K3 scatters any links: within rtol=1e-6, atol=1e-6 of the plain
-    version, the same bits from two launches."""
+    version, the same bits from two launches. The plain version runs on
+    the CPU, where scatter_add_ sums in ascending order as K3 does; on the
+    card it adds with atomics, in an order that changes from run to run."""
     rng = np.random.default_rng(6)
     for n in (1, 33, 300):
         o = torch.from_numpy(_k3_links(kind, n, rng)).to(cuda)
         g = torch.from_numpy(rng.uniform(-1, 1, (16, n)).astype(np.float32)).to(cuda)
         got = grad.minplus_grad(g, offsets=o, off_sent=-32768)
-        ref = grad.minplus_grad_plain(g, offsets=o, off_sent=-32768)
-        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+        ref = grad.minplus_grad_plain(g.cpu(), offsets=o.cpu(), off_sent=-32768)
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=1e-6)
         assert torch.equal(got, grad.minplus_grad(g, offsets=o, off_sent=-32768))
 
 
@@ -292,3 +294,122 @@ def test_soft_edtsq_softmin_kernels_match_plain(cuda):
     torch.testing.assert_close(out, rout, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(g, rg, rtol=1e-4,
                                atol=1e-4 * float(rg.abs().max()))
+
+
+def _k1_stress_rows(kind, rng):
+    """(f, labels) rows that stress K1's exact stop: heights near 3e7
+    (ulp 2), partly INF rows and a wholly INF one, one-voxel segments,
+    and sparse sources whose searches the row radius caps."""
+    if kind == "near-3e7":
+        f = (3e7 + rng.random((12, 300)) * 200).astype(np.float32)
+        f[6:, ::17] = 2.99999e7
+        labels = rng.integers(1, 3, size=(12, 300))
+    elif kind == "partly-inf":
+        f = (rng.random((12, 300)) * 900).astype(np.float32)
+        f[rng.random((12, 300)) < 0.3] = np.inf
+        f[1] = np.inf
+        labels = np.repeat(rng.integers(0, 3, size=(12, 10)), 30, axis=1)
+    elif kind == "one-voxel-segments":
+        f = (rng.random((12, 300)) * 90).astype(np.float32)
+        labels = np.broadcast_to(np.arange(300) % 3 + 1, (12, 300)).copy()
+    else:  # sparse sources
+        f = np.full((12, 300), 1e4, np.float32)
+        f[:, ::37] = rng.random((12, 9)) * 50
+        f[2] = np.inf
+        f[2, 250] = 0.0
+        labels = np.ones((12, 300))
+    f[labels == 0] = 0
+    return f, labels.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["near-3e7", "partly-inf",
+                                  "one-voxel-segments", "sparse-sources"])
+def test_minplus_kernel_exact_stop(cuda, kind):
+    """K1's outward search stops exactly: bit-exact to the plain version
+    for w2 in {0.7, 1, 36, 900}, multi-label and binary, with and without
+    black_border, and the same bits from two launches."""
+    f, labels = _k1_stress_rows(kind, np.random.default_rng(8))
+    for binary in (False, True):
+        lb = (labels != 0).astype(np.int32) if binary else labels
+        ft = torch.from_numpy(np.where(lb == 0, 0, f).astype(np.float32)).to(cuda)
+        ss, se = core.segment_bounds(torch.from_numpy(lb).to(cuda))
+        for bb in (False, True):
+            for w2 in (0.7, 1.0, 36.0, 900.0):
+                got = minplus.minplus_walls(ft, ss, se, w2, bb, not binary)
+                ref = minplus.minplus_walls_plain(ft, ss, se, w2, bb,
+                                                  not binary)
+                fin = torch.isfinite(ref)
+                assert torch.equal(torch.isfinite(got), fin)
+                assert torch.equal(got[fin], ref[fin])
+                again = minplus.minplus_walls(ft, ss, se, w2, bb, not binary)
+                assert torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_minplus_kernel_ceiling(cuda):
+    """K1 takes rows up to 58048 and raises beyond: one source a row, INF
+    elsewhere, d = w2 k^2 exactly, binary and as one segment."""
+    n = minplus.MAX_AXIS
+    assert n >= 58048
+    f = torch.full((2, n), float("inf"), device=cuda)
+    f[:, 11] = 0.0
+    k = (torch.arange(n, device=cuda) - 11).to(torch.float32)
+    ref = (36.0 * (k * k)).expand(2, n)
+    seg = torch.zeros((2, n), dtype=torch.int32, device=cuda)
+    for masked in (False, True):
+        got = minplus.minplus_walls(f, seg, seg + n, 36.0, False, masked)
+        assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="exceed"):
+        minplus.minplus_walls(torch.zeros((1, n + 1), device=cuda), None, None,
+                              1.0, False, False)
+
+
+def _distance_net_rows(rng, rows, n):
+    """Heights like DistanceFieldNet's untrained head: sigmoid of smooth
+    logits with per-voxel noise, times S^2 / 2 for S = n."""
+    z = rng.normal(0, 1, (rows, n)) * 0.4
+    z += np.cumsum(rng.normal(0, 0.05, (rows, n)), axis=1)
+    return (n * n / 2 / (1 + np.exp(-z))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0.01, 0.3, 1.0])
+def test_softmin_grad_kernel_long_windows(cuda, t):
+    """K6 on DistanceFieldNet-like rows (long windows, heights of
+    thousands): df within rtol=1e-4, atol=1e-4 max|df| of the plain
+    version, sum(g * e) within rtol=1e-3, the same bits from two launches."""
+    rng = np.random.default_rng(9)
+    f = torch.from_numpy(_distance_net_rows(rng, 16, 256)).to(cuda)
+    d = softmin.softmin_plain(f, 1.0, t)
+    g = torch.from_numpy(rng.uniform(-1, 1, (16, 256)).astype(np.float32)).to(cuda)
+    df, e = softmin.softmin_grad(f, d, g, 1.0, t)
+    rdf, re = softmin.softmin_grad_plain(f, d, g, 1.0, t)
+    torch.testing.assert_close(df, rdf, rtol=1e-4,
+                               atol=1e-4 * float(rdf.abs().max()))
+    torch.testing.assert_close((g * e).sum(), (g * re).sum(), rtol=1e-3,
+                               atol=0.0)
+    df2, e2 = softmin.softmin_grad(f, d, g, 1.0, t)
+    assert torch.equal(df.view(torch.int32), df2.view(torch.int32))
+    assert torch.equal(e.view(torch.int32), e2.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_softmin_grad_kernel_ceiling(cuda):
+    """K6 takes rows up to 29024 and raises beyond: one source a row,
+    d = w2 k^2, so df = sum(g) at the source and e = k^2."""
+    n = softmin.GRAD_MAX_AXIS
+    assert n >= 19349
+    f = torch.full((2, n), float("inf"), device=cuda)
+    f[:, 40] = 0.0
+    k = (torch.arange(n, device=cuda) - 40).to(torch.float32)
+    d = (36.0 * (k * k)).expand(2, n).contiguous()
+    g = (torch.randint(-64, 64, (2, n), device=cuda) / 16.0).contiguous()
+    df, e = softmin.softmin_grad(f, d, g, 36.0, 0.3)
+    torch.testing.assert_close(df[:, 40], g.sum(dim=1), rtol=1e-5, atol=1e-3)
+    assert int((df != 0).sum()) <= 2
+    torch.testing.assert_close(e, (k * k).expand(2, n), rtol=1e-5, atol=0.0)
+    big = torch.zeros((1, n + 1), device=cuda)
+    with pytest.raises(ValueError, match="exceed"):
+        softmin.softmin_grad(big, big, big, 36.0, 0.3)

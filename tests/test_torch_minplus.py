@@ -9,6 +9,9 @@ path (tests/test_pallas_kernels.py); against that jnp path the plain
 version is bit-exact.
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from edt_tpu.ops import pallas_kernels as pk
 from edt_tpu_torch.ops import _build, core, minplus
 
 PLAIN = minplus.make_parabolic_fn(minplus.minplus_walls_plain)
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _field(kind, seed=0):
@@ -117,3 +121,62 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _search_rows(kind, rng):
+    """(f, labels) rows that stress the kernel's exact stop."""
+    if kind == "near-3e7":  # ulp 2: neighbouring costs round together
+        f = (3e7 + rng.random((8, 120)) * 200).astype(np.float32)
+        f[4:, ::17] = 2.99999e7
+        labels = rng.integers(1, 3, size=(8, 120)).astype(np.int32)
+    elif kind == "partly-inf":  # INF heights, one wholly INF row
+        f = (rng.random((8, 120)) * 900).astype(np.float32)
+        f[rng.random((8, 120)) < 0.3] = np.inf
+        f[1] = np.inf
+        labels = np.repeat(rng.integers(0, 3, size=(8, 4)), 30, axis=1)
+    elif kind == "one-voxel-segments":
+        f = (rng.random((8, 120)) * 90).astype(np.float32)
+        labels = np.broadcast_to(np.arange(120) % 3 + 1, (8, 120)).copy()
+    else:  # sparse sources: long searches, capped by the row radius
+        f = np.full((8, 120), 1e4, np.float32)
+        f[:, ::37] = rng.random((8, 4)) * 50
+        f[2] = np.inf
+        f[2, 100] = 0.0
+        labels = np.ones((8, 120), np.int32)
+    f[labels == 0] = 0
+    return f, labels.astype(np.int32)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("kind", ["near-3e7", "partly-inf",
+                                  "one-voxel-segments", "sparse-sources"])
+def test_search_emulation_matches_plain_and_jax(kind, binary):
+    """The kernel's outward search with its exact stop (under the row
+    radius, stopping before step k once min f + w2 k^2 > min(best, wall)),
+    emulated in torch by ``chip_smoke.k1_search``: bit-exact to the plain
+    version and to the JAX package, w2 integer and not."""
+    search = _chip_smoke().k1_search
+    emulated = minplus.make_parabolic_fn(
+        lambda *args, **kw: search(*args, **kw)[0])
+    f, labels = _search_rows(kind, np.random.default_rng(4))
+    if binary:
+        labels = (labels != 0).astype(np.int32)
+        f[labels == 0] = 0
+    ft, lt = torch.from_numpy(f), torch.from_numpy(labels)
+    for w in (0.7, 1.0, 6.0, 30.0):
+        for bb in (False, True):
+            got = core.parabolic_pass_sq(ft, lt, w, bb, binary=binary,
+                                         parabolic_fn=emulated).numpy()
+            assert_same(got, core.parabolic_pass_sq(
+                ft, lt, w, bb, binary=binary, parabolic_fn=PLAIN).numpy())
+            ref = jcore.parabolic_pass_sq(jnp.asarray(f), jnp.asarray(labels),
+                                          jnp.float32(w), bb, binary=binary)
+            assert_same(got, np.asarray(ref))

@@ -118,4 +118,12 @@ def test_wrappers_dispatch():
         softmin.softmin(ft.to("meta"), w2, t)
     with pytest.raises(ValueError, match="unsupported device"):
         softmin.softmin_grad(ft.to("meta"), d.to("meta"), g.to("meta"), w2, t)
-    assert softmin.MAX_AXIS == 58048 and softmin.GRAD_MAX_AXIS == 19349
+    assert softmin.MAX_AXIS == 58048 and softmin.GRAD_MAX_AXIS == 29024
+
+
+def test_grad_kernel_ceiling():
+    """K6 stages the f32 row of f and an f32 df accumulator in shared
+    memory, 8 B a voxel: rows up to 29024 (19349 when it also staged d and
+    g), half of K5's 58048; the autograd path at t > 0 follows it."""
+    assert softmin.GRAD_MAX_AXIS == (softmin.MAX_SMEM_BYTES - 256) // 8
+    assert softmin.GRAD_MAX_AXIS == 29024 >= 19349
