@@ -1,15 +1,20 @@
 """Smoke run of the PyTorch port on one CUDA card (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [PHASE ...]
 
-Builds the CUDA kernels from ``edt_tpu_torch/csrc``, holds every kernel
-against its plain PyTorch version on the card (K1 and K2 bit-exact, K3 and
-K4 within rtol=1e-5, atol=1e-5: the same sums in another order, K3 the
-same bits from two launches; K5 and K6 within the JAX package's
-tolerances for its softmin kernels; K1's and K2's outward searches on rows
-that stress their exact stops, K3 on links K2 never makes, K6 on
-DistanceFieldNet-like rows, each up to and beyond its ceiling, K1, K3 and
-K6 launched twice to the same bits), and drives the port's main paths:
+(with words, only the build and the phases whose names contain one of
+them, for a short run on the card, and no result lines). Builds the CUDA
+kernels from ``edt_tpu_torch/csrc``, holds every kernel against its plain
+PyTorch version on the card (K1 and K2 bit-exact, K3 and K4 within
+rtol=1e-5, atol=1e-5: the same sums in another order; K5 and K6 within
+the JAX package's tolerances for its softmin kernels; K1's and K2's
+outward searches on rows that stress their exact stops, K3 on links K2
+never makes, K4 on zero sites at its lane boundaries and past its
+register cap, K5 on rows that stress its walk in both its regimes, K6 on
+DistanceFieldNet-like rows, each up to and beyond its ceiling; K1, K3,
+K4, K5 and K6 launched twice to the same bits), times K5 and K6 alone on
+the DistanceFieldNet step's captured passes, and drives the port's main
+paths:
 
 - slice 1, the forward multi-label EDT through the NumPy API (K1), at
   128^3 and at the 512^3 ``bench.py`` volume;
@@ -365,8 +370,8 @@ def bound_exp_ms(nbytes, ops, exps, exps_per_s):
 
 def window_terms(gap, w2):
     """Terms of the windows |k| <= r with w2 k^2 <= gap (one window a
-    position, clipped to the row; a NaN or negative gap has none): what
-    K5 and K6 sum on these inputs."""
+    position, clipped to the row; a NaN or negative gap has none): K5's
+    hard-min windows and K6's windows on these inputs."""
     n = gap.shape[-1]
     i = torch.arange(n, device=gap.device)
     r = torch.floor(torch.sqrt(gap.clamp(min=0.0) / w2)).clamp(max=n)
@@ -375,14 +380,149 @@ def window_terms(gap, w2):
     return int(torch.where(r >= 0, cnt, 0).sum())
 
 
-def k5_work(f, w2, t):
-    """(hard-min candidates, exp terms) of K5 on these inputs."""
-    from edt_tpu_torch.ops import argmin, core
+def soft_cut(t):
+    """30 t as the softmin kernels form it: f32(30) * f32(t), rounded once."""
+    return float(np.float32(30.0) * np.float32(t))
 
+
+def k5_search(f, w2, t, floor="row"):
+    """K5's walk emulated in torch with the kernel's roundings: (d, taken,
+    exps, visited, steps, warp steps) on these inputs. Each target holds
+    m = f_i and s = 1, then takes the steps k = 1, 2, ... in pairs
+    (k, k + 1), up to max(i, n - 1 - i), each step the j = i -+ k (INF
+    outside the row), until (lb + w2 k^2) - m > 30 t before a pair. A pair
+    whose second least cost is inside the cut of min(m, its least) takes
+    its four candidates one at a time: one at cost c below m rescales s by
+    exp((c - m) / t) and adds 1 (m = c), one with m - c >= -30 t adds
+    exp((c - m) / t). Any other pair takes only its least candidate, the
+    same way. d = m - t log(s) (INF on all-INF rows). Taken: the
+    candidates whose weight entered s, the centre's included, a superset
+    of the pairs inside each target's final cut; exps: those besides the
+    centre. lb is the row's min f (``floor="row"``, the kernel's), or with
+    ``floor="side"`` the min f beyond i - k on the left and beyond i + k on
+    the right, each side stopping on its own (a floor counted, not built).
+    Visited: the candidates inside the row that the walk loads. A warp
+    holds 32 adjacent targets and runs as many steps as its slowest."""
+    from torch.nn.functional import pad
+
+    from edt_tpu_torch.ops import core
+
+    R, n = f.shape
+    inf = float("inf")
+    w2t = torch.tensor(core.f32(w2), dtype=torch.float32, device=f.device)
+    cut, t32 = soft_cut(t), core.f32(t)
+    i = torch.arange(n, device=f.device)
+    kmax = torch.maximum(i, n - 1 - i)
+    minf = f.amin(dim=1, keepdim=True) if n else f[:, :1]
+    live = torch.isfinite(minf).expand(R, n)  # all-INF rows: no walk
+
+    def left(x, k):
+        return pad(x[:, :n - k], (k, 0), value=inf) if k < n else \
+            torch.full_like(x, inf)
+
+    def right(x, k):
+        return pad(x[:, k:], (0, k), value=inf) if k < n else \
+            torch.full_like(x, inf)
+
+    if floor == "row":
+        lb_l = lb_r = lambda k: minf  # noqa: E731
+    else:
+        pre = f.cummin(dim=1).values
+        suf = f.flip(1).cummin(dim=1).values.flip(1)
+        lb_l, lb_r = (lambda k: left(pre, k)), (lambda k: right(suf, k))
+
+    def take(c, m, s):
+        """One candidate at cost c against (m, s): (m, s, taken)."""
+        x = m - c
+        down = x > 0
+        add = ~down & (x >= -cut)
+        w = torch.exp(-x.abs() / t32)
+        s = torch.where(down, s * w + 1, torch.where(add, s + w, s))
+        return torch.where(down, c, m), s, down | add
+
+    m, s = f.clone(), torch.ones_like(f)
+    exps = 0
+    go = go_l = go_r = live
+    steps = live.to(torch.int32)
+    visited = int(live.sum())
+    for k in range(1, n, 2):
+        q1 = w2t * torch.tensor(float(k * k), device=f.device)
+        q2 = w2t * torch.tensor(float((k + 1) * (k + 1)), device=f.device)
+        if floor == "row":
+            go = go & (k <= kmax) & ~(((minf + q1) - m) > cut)
+            go_l = go_r = go
+        else:
+            go_l = go_l & (k <= i) & ~(((lb_l(k) + q1) - m) > cut)
+            go_r = go_r & (k <= n - 1 - i) & ~(((lb_r(k) + q1) - m) > cut)
+            go = go_l | go_r
+        if not bool(go.any()):
+            break
+        steps += 2 * go
+        cs = []
+        for g, side, kk in ((go_l, left, k), (go_r, right, k),
+                            (go_l, left, k + 1), (go_r, right, k + 1)):
+            inside = g & ((kk <= i) if side is left else (kk <= n - 1 - i))
+            visited += int(inside.sum())
+            q = q1 if kk == k else q2
+            cs.append(torch.where(g, side(f, kk) + q, inf))
+        a, b = torch.minimum(cs[0], cs[1]), torch.minimum(cs[2], cs[3])
+        lo = torch.minimum(a, b)
+        lo2 = torch.minimum(torch.maximum(a, b),
+                            torch.minimum(torch.maximum(cs[0], cs[1]),
+                                          torch.maximum(cs[2], cs[3])))
+        mn = torch.minimum(m, lo)
+        slow = go & ((mn - lo2) >= -cut)
+        fast = go & ~slow
+        fm, fs, ft = take(lo, m, s)
+        sm, ss = m, s
+        for c in cs:
+            sm, ss, st = take(c, sm, ss)
+            exps += int((slow & st).sum())
+        exps += int((fast & ft).sum())
+        m = torch.where(fast, fm, torch.where(slow, sm, m))
+        s = torch.where(fast, fs, torch.where(slow, ss, s))
+    d = torch.where(s > 0, m - t32 * torch.log(s), m)
+    warp = (32 * int(pad(steps, (0, -n % 32)).reshape(R, -1, 32)
+                     .amax(dim=-1).sum()) if n else 0)
+    return d, exps + int(live.sum()), exps, visited, int(steps.sum()), warp
+
+
+def k5_pairs(f, w2, t):
+    """(needed, hard, visited) counts of K5 on these inputs. Needed: the
+    pairs the function needs, those inside each target's own cut,
+    (f_j + w2 k^2) - dmin_i <= 30 t (cost rounded as the kernel rounds it),
+    one exp each. Hard: the candidates of the exact hard min's window under
+    the row-min floor, w2 k^2 <= dmin_i - min f, which any walk with that
+    floor must visit. Visited: the candidates K5's walk loads
+    (``k5_search``)."""
+    from edt_tpu_torch.ops import core
+
+    R, n = f.shape
+    cut = soft_cut(t)
     minf = f.amin(dim=1, keepdim=True)
-    dmin, _ = argmin.minplus_argmin(f, w2)
-    cut = core.f32(30.0 * t)
-    return window_terms(dmin - minf, w2), window_terms(dmin + cut - minf, w2)
+    q = torch.arange(n, dtype=torch.float32, device=f.device)
+    q = q[:, None] - q[None, :]
+    wq = (q * q) * core.f32(w2)
+    chunk = max(1, (1 << 28) // (n * n or 1))
+    needed = 0
+    dmin = torch.empty_like(f)
+    for r0 in range(0, R, chunk):
+        cost = f[r0:r0 + chunk, None, :] + wq
+        dmin[r0:r0 + chunk] = cost.amin(dim=-1)
+        needed += int(((cost - dmin[r0:r0 + chunk, :, None]) <= cut).sum())
+        del cost
+    visited = k5_search(f, w2, t)[3]
+    return needed, window_terms(dmin - minf, w2), visited
+
+
+def k5_bound_ms(f, w2, t, exps_per_s):
+    """K5's least time on these inputs: 8 B a voxel (f read, d written), or
+    its needed pairs at one exp each (the special-function rate) or 6 f32
+    operations each (square, scale, add, sub, scale, sum), the largest.
+    Returns (bound_exp_ms's triple, needed, hard, visited)."""
+    needed, hard, visited = k5_pairs(f, w2, t)
+    return (bound_exp_ms(8 * f.numel(), 6 * needed, needed, exps_per_s),
+            needed, hard, visited)
 
 
 def k6_pairs(f, d, w2, t):
@@ -910,6 +1050,117 @@ def check_ceilings(dev):
         raise AssertionError(f"{name}: rows of {n} did not raise")
 
 
+def k4_lanes(n):
+    """V, the voxels a lane of K4 holds on rows a warp holds (n <= 1024):
+    the least power of two with 32 V >= n."""
+    v = 1
+    while 32 * v < n:
+        v *= 2
+    return v
+
+
+def k4_blocked(g, offsets, off_sent=None):
+    """K4's lane-blocked scan emulated in torch: df of the closed-form
+    binary pass with lane l of a warp holding the V contiguous voxels
+    [l V, l V + V) of its row (``k4_lanes``). Each lane sums its own
+    forward values g [o0 > 0] after its last zero site and its backward
+    values g [o0 < 0] before its first; an exclusive segmented scan of the
+    32 lane sums in each direction (the kernel's five shuffle steps) gives
+    each lane its carry; each lane then walks its voxels in order, a zero
+    site taking the running sum, forward then backward."""
+    from torch.nn.functional import pad
+
+    R, n = g.shape
+    v = k4_lanes(n)
+    if off_sent is not None:
+        live = offsets != off_sent
+        g = torch.where(live, g, 0.0)
+        offsets = torch.where(live, offsets, 0)
+    z = offsets == torch.iinfo(offsets.dtype).max
+    o0 = torch.where(z, 0, offsets)
+    extra = 32 * v - n
+    gm = pad(g, (0, extra)).reshape(R, 32, v)
+    zz = pad(z, (0, extra)).reshape(R, 32, v)
+    oo = pad(o0, (0, extra)).reshape(R, 32, v)
+    vf = torch.where(oo > 0, gm, 0.0)
+    vb = torch.where(oo < 0, gm, 0.0)
+    cols = list(torch.where(oo == 0, gm, 0.0).unbind(-1))
+    fwd = torch.zeros_like(gm[..., 0])
+    bwd = torch.zeros_like(fwd)
+    for e in range(v):
+        fwd = torch.where(zz[..., e], 0.0, fwd + vf[..., e])
+        r = v - 1 - e
+        bwd = torch.where(zz[..., r], 0.0, bwd + vb[..., r])
+    flag = zz.any(dim=-1)
+
+    def carry(val, fl):  # lanes in scan order; exclusive, reset at zeros
+        s = 1
+        while s < 32:
+            vs, fs = pad(val[:, :-s], (s, 0)), pad(fl[:, :-s], (s, 0))
+            val, fl = torch.where(fl, val, vs + val), fl | fs
+            s *= 2
+        return pad(val[:, :-1], (1, 0))
+
+    run = carry(fwd, flag)
+    for e in range(v):
+        cols[e] = torch.where(zz[..., e], cols[e] + run, cols[e])
+        run = torch.where(zz[..., e], 0.0, run + vf[..., e])
+    run = carry(bwd.flip(-1), flag.flip(-1)).flip(-1)
+    for r in range(v - 1, -1, -1):
+        cols[r] = torch.where(zz[..., r], cols[r] + run, cols[r])
+        run = torch.where(zz[..., r], 0.0, run + vb[..., r])
+    return torch.stack(cols, dim=-1).reshape(R, 32 * v)[:, :n]
+
+
+def k4_stress_cases(rng):
+    """(name, g, offsets, off_sent) rows that stress K4's lane blocks and
+    its two sweeps: zero sites on lane boundaries (every multiple of V and
+    the voxel before it), on the first and last voxel only, rows with no
+    zero site, rows of zero sites only, random offsets with 10 % zero
+    sites and 10 % wall wins (off_sent), int16 and int32 offsets; n in
+    {1, 7, 31, 33, 512, 513} (a warp a row, in registers) and 1025, 3000
+    (past the register cap: the two sweeps)."""
+    cases = []
+    for n in (1, 7, 31, 33, 512, 513, 1025, 3000):
+        rows = 24 if n <= 513 else 8
+        v = k4_lanes(n) if n <= 1024 else 32
+        for idt in (torch.int16, torch.int32):
+            top, sent = torch.iinfo(idt).max, torch.iinfo(idt).min
+            o = rng.integers(-6, 7, size=(rows, n)).astype(np.int64)
+            i = np.arange(n)
+            k = rows // 6
+            o[:k, (i % v == 0) | (i % v == v - 1)] = top  # lane boundaries
+            o[k:2 * k][rng.random((k, n)) < 0.1] = top
+            # rows 2k to 3k: no zero site
+            o[3 * k:4 * k] = top  # zero sites only
+            o[4 * k:5 * k, [0, n - 1]] = top  # the first and last voxel
+            o[5 * k:][rng.random((rows - 5 * k, n)) < 0.3] = top
+            walls = rng.random((rows, n)) < 0.1
+            walls[3 * k:4 * k] = False
+            g = rng.uniform(-1, 1, (rows, n)).astype(np.float32)
+            name = f"K4 n={n} {str(idt)[6:]}"
+            cases.append((name, g, torch.from_numpy(o).to(idt), None))
+            cases.append((name + " off_sent walls", g, torch.from_numpy(
+                np.where(walls, sent, o)).to(idt), sent))
+    return cases
+
+
+def check_k4_cases(close4, dev, rng):
+    """K4 against its plain version on ``k4_stress_cases``, each launched
+    twice to the same bits. Returns the number of cases."""
+    from edt_tpu_torch.ops import grad
+
+    cases = k4_stress_cases(rng)
+    for name, g, o, sent in cases:
+        gt, ot = torch.from_numpy(g).to(dev), o.to(dev)
+        got = grad.binary_grad_scan(gt, ot, off_sent=sent)
+        close4.check(name, got, grad.binary_grad_scan_plain(gt, ot, sent))
+        again = grad.binary_grad_scan(gt, ot, off_sent=sent)
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            close4.failures.append(f"{name}: two launches differ")
+    return len(cases)
+
+
 def check_grads(close3, close4, name, ft, o, w2, walls_f32, dev, rng):
     """K3 on K2's residual ``o`` and K4 on the closed-form binary pass's
     residual of the same rows, each against its plain version."""
@@ -1000,13 +1251,16 @@ def phase_grad_kernel_cases(exact, close3, close4, dev):
         exact.check(f"K2 n={n} walls={wname} offsets", o, ro)
         n_k2 += 1
     n_k3 = check_k3_cases(close3, dev, rng_new)
+    n_k4 = check_k4_cases(close4, dev, np.random.default_rng(29))
     check_ceilings(dev)
     exact.raise_if_failed("K2 vs plain")
     close3.raise_if_failed("K3 vs plain")
     close4.raise_if_failed("K4 vs plain")
     print(f"K2 vs plain: {n_k2 + 1} cases bit-exact, up to n={n}; K3 and K4 "
           f"vs plain on {len(cases) + 1} residuals, and K3 on {n_k3} more link "
-          f"sets up to n={n}, each launched twice to the same bits, within "
+          f"sets up to n={n}, each launched twice to the same bits; K4 on "
+          f"{n_k4} stress cases up to n=3000 (past its register cap), each "
+          f"launched twice to the same bits; within "
           f"rtol={close3.rtol}, atol={close3.atol}: max abs err K3 "
           f"{close3.max_abs_err}, K4 {close4.max_abs_err}; both raise beyond "
           f"their ceilings")
@@ -1309,6 +1563,60 @@ def distance_net_rows(rng, rows, n, scale):
     return (scale / (1 + np.exp(-z))).astype(np.float32)
 
 
+def softmin_by_targets(f, w2, t, chunk=256):
+    """softmin_plain's arithmetic taken ``chunk`` targets at a time: the
+    plain version on rows too long for its (rows, n, n) cost tensor."""
+    from edt_tpu_torch.ops import core
+
+    n = f.shape[1]
+    w2, t = core.f32(w2), core.f32(t)
+    j = torch.arange(n, dtype=torch.float32, device=f.device)
+    d = torch.empty_like(f)
+    for i0 in range(0, n, chunk):
+        diff = j[i0:i0 + chunk, None] - j[None, :]
+        cost = f[:, None, :] + (diff * diff) * w2
+        d[:, i0:i0 + chunk] = -t * torch.logsumexp(-cost / t, dim=-1)
+    return d
+
+
+def k5_stress_rows(rng):
+    """(name, f, w2, t) rows that stress K5's walks and its cut: t in
+    {0.01, 0.3, 1}, w2 in {0.7, 900}, heights near 3e7 (ulp 2: neighbouring
+    costs round together), partly INF rows with a wholly INF row and a row
+    of one finite height, and DistanceFieldNet-like rows (w2 = 1, heights
+    of n^2 / 2, long windows); n in {1, 31, 33, 256, 257, 2048} (a warp a
+    row) and 2049 (a block a row)."""
+    cases = []
+    for n in (1, 31, 33, 256, 257, 2048, 2049):
+        rows = 16 if n <= 257 else 4
+        for t in (0.01, 0.3, 1.0):
+            for w2 in (0.7, 900.0):
+                f = (3e7 + rng.random((rows, n)) * 200).astype(np.float32)
+                f[rows // 2:, ::97] = 2.99999e7
+                cases.append((f"n={n} t={t} w2={w2} f near 3e7", f, w2, t))
+                f = (rng.random((rows, n)) * 900).astype(np.float32)
+                f[rng.random((rows, n)) < 0.3] = np.inf
+                f[1] = np.inf  # a wholly INF row
+                f[2] = np.inf
+                f[2, rng.integers(0, n)] = 5.0  # one finite height
+                cases.append((f"n={n} t={t} w2={w2} partly INF", f, w2, t))
+            cases.append((f"n={n} t={t} DistanceFieldNet-like",
+                          distance_net_rows(rng, rows, n, n * n / 2), 1.0, t))
+    return cases
+
+
+def check_k5(close5, name, ft, w2, t, ref):
+    """K5 against ``ref`` within close5; a second launch gives the same
+    bits."""
+    from edt_tpu_torch.ops import softmin
+
+    got = softmin.softmin(ft, w2, t)
+    close5.check(f"K5 {name}", got, ref)
+    again = softmin.softmin(ft, w2, t)
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        close5.failures.append(f"K5 {name}: two launches differ")
+
+
 def phase_softmin_kernel_cases(close5, close6, dev):
     """K5 and K6 against their plain versions over their regimes, with the
     JAX package's tolerances for its softmin kernels (close5, close6)."""
@@ -1323,7 +1631,7 @@ def phase_softmin_kernel_cases(close5, close6, dev):
                 name = f"n={n} w2={w2} t={t}"
                 ft = torch.from_numpy(softmin_rows(rng, rows, n, w2)).to(dev)
                 rd = softmin.softmin_plain(ft, w2, t)
-                close5.check(f"K5 {name}", softmin.softmin(ft, w2, t), rd)
+                check_k5(close5, name, ft, w2, t, rd)
                 # K6 on the finite rows: an all-INF row is NaN in the plain
                 # version (INF - INF), as in the JAX package
                 g = torch.from_numpy(rng.uniform(-1, 1, (rows - 1, n))
@@ -1334,8 +1642,7 @@ def phase_softmin_kernel_cases(close5, close6, dev):
     for t in (0.01, 0.3, 1.0):
         ft = torch.from_numpy(distance_net_rows(rng, 24, 256, 256 * 256 / 2)).to(dev)
         rd = softmin.softmin_plain(ft, 1.0, t)
-        close5.check(f"K5 DistanceFieldNet-like t={t}",
-                     softmin.softmin(ft, 1.0, t), rd)
+        check_k5(close5, f"DistanceFieldNet-like t={t}", ft, 1.0, t, rd)
         g = torch.from_numpy(rng.uniform(-1, 1, ft.shape)
                              .astype(np.float32)).to(dev)
         check_k6(close6, f"DistanceFieldNet-like t={t}", ft, rd, g, 1.0, t)
@@ -1349,8 +1656,8 @@ def phase_softmin_kernel_cases(close5, close6, dev):
         ft[torch.arange(rows), torch.from_numpy(src)] = 0.0
         k = (torch.arange(n, device=dev)[None, :]
              - torch.from_numpy(src).to(dev)[:, None]).to(torch.float32)
+        check_k5(close5, f"one source n={n}", ft, 36.0, 0.3, 36.0 * (k * k))
         d = softmin.softmin(ft, 36.0, 0.3)
-        close5.check(f"K5 one source n={n}", d, 36.0 * (k * k))
         if n > softmin.GRAD_MAX_AXIS:
             continue
         g = torch.from_numpy(rng.uniform(-1, 1, (rows, n))
@@ -1364,6 +1671,19 @@ def phase_softmin_kernel_cases(close5, close6, dev):
         ref_df[torch.arange(rows), torch.from_numpy(src)] = g.sum(dim=1)
         close6.check(f"K6 df one source n={n}", df, ref_df)
         close6.check(f"K6 e one source n={n}", e, k * k)
+    n_stress = 0
+    for name, f, w2, t in k5_stress_rows(np.random.default_rng(23)):
+        ft = torch.from_numpy(f).to(dev)
+        check_k5(close5, name, ft, w2, t, softmin.softmin_plain(ft, w2, t))
+        n_stress += 1
+    # random rows at the ceiling, against the plain arithmetic by targets
+    n = softmin.MAX_AXIS
+    ft = torch.from_numpy((rng.random((2, n)) * 900).astype(np.float32)).to(dev)
+    ft[1, ::3] = float("inf")
+    for w2, t in ((36.0, 0.3), (0.7, 0.01)):
+        check_k5(close5, f"n={n} w2={w2} t={t}", ft, w2, t,
+                 softmin_by_targets(ft, w2, t))
+        n_stress += 1
     for fn, n in ((lambda x: softmin.softmin(x, 1.0, 0.3),
                    softmin.MAX_AXIS + 1),
                   (lambda x: softmin.softmin_grad(x, x, x, 1.0, 0.3),
@@ -1378,8 +1698,9 @@ def phase_softmin_kernel_cases(close5, close6, dev):
     close6.raise_if_failed("K6 vs plain")
     print(f"K5-K6 vs plain: {n_cases} cases and 3 one-source rows up to "
           f"n={softmin.MAX_AXIS} (K6 up to its ceiling n="
-          f"{softmin.GRAD_MAX_AXIS}; each K6 case launched twice to the same "
-          f"bits; both raise beyond); K5 within rtol={close5.rtol}, "
+          f"{softmin.GRAD_MAX_AXIS}), and {n_stress} K5 stress cases up to "
+          f"n={softmin.MAX_AXIS}; every case launched twice to the same "
+          f"bits; both raise beyond their ceilings; K5 within rtol={close5.rtol}, "
           f"atol={close5.atol}: max abs err {close5.max_abs_err}; K6 df "
           f"within rtol={close6.rtol}, atol={close6.atol_rel} max|df|, "
           f"sum(g e) within rtol=1e-3: max abs err {close6.max_abs_err}")
@@ -1513,18 +1834,17 @@ def phase_softmin_full(close5, close6, kernels, dev):
     k6_ms, _ = cuda_ms(k6, reps=20, warmup=2)
     k6_plain_ms, _ = cuda_ms(k6_plain, reps=3)
     exps_per_s = sfu_exps_per_s()
-    hard, terms5 = k5_work(f1, 1.0, SOFT_T)
-    # f32 operations: 4 a hard-min candidate (square, scale, add, min),
-    # 6 an exp term besides its exp (square, scale, add, sub, scale, sum)
-    k5_bound = bound_exp_ms(8 * f1.numel(), 4 * hard + 6 * terms5, terms5,
-                            exps_per_s)
+    k5_bound, needed5, hard5, visited5 = k5_bound_ms(f1, 1.0, SOFT_T,
+                                                     exps_per_s)
     k6_bound, needed6, visited6 = k6_bound_ms(f1, d1, 1.0, SOFT_T,
                                               exps_per_s)
     vox1 = f1.numel()
     for name, ms_, pms, (bms, by, term), work in (
             ("K5", k5_ms, k5_plain_ms, k5_bound,
-             f"{hard / vox1:.1f} hard-min candidates and {terms5 / vox1:.1f}"
-             " exp terms a voxel"),
+             f"{needed5 / vox1:.2f} pairs a voxel inside the cut (the "
+             f"bound's exps), {hard5 / vox1:.1f} hard-min candidates under "
+             f"the row-min floor, {visited5 / vox1:.1f} candidates a voxel "
+             "visited by the kernel's walk"),
             ("K6", k6_ms, k6_plain_ms, k6_bound,
              f"{needed6 / vox1:.2f} pairs a voxel inside the cut (the bound's "
              f"exps), {visited6 / vox1:.1f} candidates a voxel in the "
@@ -1605,11 +1925,11 @@ def check_kernels_vs_plain_step(close, make, make_step, feats, target, label):
           f"atol={close.atol}: max abs err {close.max_abs_err}")
 
 
-def phase_distance_net(close, close6, dev):
+def phase_distance_net(close, close5, close6, dev):
     """DistanceFieldNet at the widths of examples/train_distance_net.py:
     one step through the kernels against the plain path at 2 x 128^3, 5
-    timed steps at 2 x 256^3 on one synthetic batch, and K6 alone on that
-    step's three passes."""
+    timed steps at 2 x 256^3 on one synthetic batch, and K5 and K6 alone on
+    that step's three passes."""
     from edt_tpu_torch.models import distance_net, soft
 
     def make():
@@ -1646,16 +1966,57 @@ def phase_distance_net(close, close6, dev):
           f"{losses}; peak device memory {peak / 2**30:.2f} GiB")
     profile(lambda: step(feats, target), f"DistanceFieldNet 2 x {S}^3 step",
             top=12, by_op=True)
-    # K5's work on the first pass of this step: the untrained head's
-    # sigmoid occupancy against the random cell's two-valued one
-    with torch.no_grad():
-        f0 = (S * S / 2) * torch.sigmoid(model(feats)).reshape(-1, S)
-        hard, terms = k5_work(f0, 1.0, SOFT_T)
-    print(f"DistanceFieldNet first pass {tuple(f0.shape)}: K5 scans "
-          f"{hard / f0.numel():.1f} hard-min candidates and "
-          f"{terms / f0.numel():.1f} exp terms a voxel")
-    del f0
+    distance_net_k5(close5, make_step, model, feats, target)
     distance_net_k6(close6, make_step, model, feats, target)
+
+
+def distance_net_k5(close5, make_step, model, feats, target):
+    """K5 alone on the DistanceFieldNet step's own three pass inputs,
+    captured by a step through a recording soft.Kernels: each launch's ms,
+    its bound (the pairs inside the cut), its needed, hard and visited
+    counts a voxel, and its plain-version check."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import softmin
+
+    seen = []
+
+    def recording(f, w2, t):
+        seen.append((f.clone(), w2, t))
+        return softmin.softmin(f, w2, t)
+
+    _, step = make_step(model, soft.Kernels(softmin=recording), TRAIN_FULL)
+    step(feats, target)
+    if len(seen) != 3:
+        raise AssertionError(f"DistanceFieldNet step recorded {len(seen)} "
+                             "K5 inputs, expected 3")
+    exps_per_s = sfu_exps_per_s()
+    times = []
+    for k, (f, w2, t) in enumerate(seen):
+        ref = softmin.softmin_plain(f, w2, t)
+        check_k5(close5, f"DistanceFieldNet pass {k}", f, w2, t, ref)
+        del ref
+        ms, _ = cuda_ms(lambda: softmin.softmin(f, w2, t), reps=10,  # noqa: B023
+                        warmup=2)
+        pms, _ = cuda_ms(lambda: softmin.softmin_plain(f, w2, t), reps=2)  # noqa: B023
+        (bms, by, term), needed, hard, visited = k5_bound_ms(f, w2, t,
+                                                             exps_per_s)
+        side, side_warp = k5_search(f, w2, t, floor="side")[3::2]
+        _, taken, exps, _, steps, warp_steps = k5_search(f, w2, t)
+        times.append(ms)
+        vox = f.numel()
+        print(f"K5 DistanceFieldNet pass {k} {tuple(f.shape)} (w2 {w2:g}, "
+              f"t {t:g}): {ms:.3f} ms, plain {pms:.1f} ms, bound {bms:.3f} ms "
+              f"({by}: {term}); a voxel: {needed / vox:.2f} pairs inside the "
+              f"cut, {hard / vox:.1f} hard-min candidates under the row-min "
+              f"floor, {visited / vox:.1f} visited by the walk in "
+              f"{steps / vox:.1f} steps a target, {warp_steps / vox:.1f} a "
+              f"warp's, {taken / vox:.2f} taken into the sum ({exps / vox:.2f} "
+              f"exps); with side floors {side / vox:.1f} visited, "
+              f"{side_warp / vox:.1f} warp steps")
+    close5.raise_if_failed("K5 on the DistanceFieldNet passes")
+    print(f"K5 on the DistanceFieldNet step's passes: mean {np.mean(times):.3f} "
+          f"ms a launch, within rtol={close5.rtol}, atol={close5.atol} of the "
+          "plain version, two launches the same bits")
 
 
 def distance_net_k6(close6, make_step, model, feats, target):
@@ -1751,7 +2112,9 @@ def phase_unet3d(close, dev):
           "median of 3")
 
 
-def main() -> int:
+def main(only=()) -> int:
+    """Every phase; with ``only`` (command-line words), the build and the
+    phases whose names contain one of them, and no result lines."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1801,8 +2164,11 @@ def main() -> int:
               ("softmin 256^3",
                lambda: phase_softmin_full(close5, close6, kernels, dev)),
               ("DistanceFieldNet trainer",
-               lambda: phase_distance_net(close_train, close6, dev)),
+               lambda: phase_distance_net(close_train, close5, close6, dev)),
               ("UNet3D trainer", lambda: phase_unet3d(close_train, dev))]
+    if only:
+        phases = [(name, fn) for name, fn in phases if name == "build"
+                  or any(w.lower() in name.lower() for w in only)]
     for name, fn in phases:
         t = time.perf_counter()
         try:
@@ -1817,6 +2183,9 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    if only:
+        print(f"chip_smoke: ran only {[name for name, _ in phases]}")
+        return 0
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1825,4 +2194,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

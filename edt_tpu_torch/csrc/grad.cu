@@ -47,19 +47,35 @@
 // where the segmented sums reset at zero sites (edt_tpu/models/soft.py:
 // _binary_grad_from_links). Computed literally, for any input.
 //
-// Design: one warp per row, eight rows a block. A left-to-right sweep over
-// 32-voxel chunks runs a warp-shuffle segmented scan on each chunk with the
-// carry of the chunks before it and writes the self term plus the prefix
-// term; a right-to-left sweep does the same for the suffix term and adds it
-// at the zero sites. No shared memory, so no axis ceiling.
+// Design: one warp a row, eight rows a block. On rows up to 32 kScanRegMax
+// = 1024 voxels the warp holds its row in registers: lane l owns the V
+// contiguous voxels [l V, l V + V), V the least power of two with 32 V >= n
+// (16 at n = 512). It loads them at once, 16 B a load where the row's
+// pitch and the pointers allow (n a multiple of 4 for g, of 8 for int16
+// offsets; smaller loads otherwise, one voxel at a time at the row's
+// ragged end), every load issued before any is used. Each lane sums its
+// own forward values g [o0 > 0] after its last zero site and its backward
+// values g [o0 < 0] before its first; one shuffle scan of the 32 lane sums
+// with their zero-site flags in each direction, the segmented operator of
+// the sweeps below, gives each lane its carry; the lane then walks its
+// voxels in order, forward and backward, each zero site taking the
+// running sum, and df is stored once from registers. Each voxel is read
+// and written once. Longer rows take two sweeps over 32-voxel chunks: a
+// left-to-right one runs a warp-shuffle segmented scan on each chunk with
+// the carry of the chunks before it and writes the self term plus the
+// prefix term; a right-to-left one does the same for the suffix term and
+// adds it at the zero sites. No shared memory, so no axis ceiling.
 //
 // Bound on the card: HBM bytes. g (4 B) and int16 offsets (2 B) read once,
-// df (4 B) written once: 10 B a voxel for either kernel. K4 does nothing
-// yet to reach it: it reads g and the offsets twice (one sweep each way)
-// and df again at zero sites.
+// df (4 B) written once: 10 B a voxel for either kernel. K4's sweeps, on
+// rows past the register cap, read g and the offsets twice and df again
+// at zero sites.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,6 +83,7 @@ constexpr int kGradWarps = 8;  // rows a block, at most
 constexpr int kGradUnroll = 4;  // chunks in flight
 constexpr int kMaxSmem = 232448;  // an H100 block's opt-in shared memory
 constexpr int kScanWarps = 8;
+constexpr int kScanRegMax = 32;  // K4: voxels a lane holds in registers
 constexpr unsigned kFull = 0xffffffffu;
 
 enum LinkKind { kAbsI32 = 0, kOffI16 = 1, kOffI32 = 2 };
@@ -239,6 +256,152 @@ binary_grad_scan_kernel(const float* __restrict__ g,
   }
 }
 
+// K4 on rows a warp holds in registers (n <= 32 * kScanRegMax): lane l owns
+// the V contiguous voxels [l V, l V + V). Loads of W elements (16 B where
+// the row allows it, else smaller, else one at a time), all issued before
+// any is used.
+template <typename T, int W>
+__device__ __forceinline__ void load_run(const T* p, int j, int n, bool vec,
+                                         T* dst) {
+  constexpr int kBytes = W * (int)sizeof(T);
+  if (vec && j + W <= n) {
+    if constexpr (kBytes == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + j));
+      memcpy(dst, &v, 16);
+      return;
+    } else if constexpr (kBytes == 8) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p + j));
+      memcpy(dst, &v, 8);
+      return;
+    } else if constexpr (kBytes == 4) {
+      const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p + j));
+      memcpy(dst, &v, 4);
+      return;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < W; ++u) dst[u] = j + u < n ? __ldg(p + j + u) : T(0);
+}
+
+template <int W>
+__device__ __forceinline__ void store_run(float* p, int j, int n, bool vec,
+                                          const float* src) {
+  if (vec && j + W <= n) {
+    if constexpr (W == 4) {
+      *reinterpret_cast<float4*>(p + j) = make_float4(src[0], src[1], src[2], src[3]);
+      return;
+    } else if constexpr (W == 2) {
+      *reinterpret_cast<float2*>(p + j) = make_float2(src[0], src[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < W; ++u)
+    if (j + u < n) p[j + u] = src[u];
+}
+
+// The segmented sums of a warp's lanes, each lane one (flag, sum) with the
+// sum after its last zero site (forward) or before its first (backward):
+// the exclusive scan, every lane the carry into it from the lanes before it
+// in that direction, reset at zero sites.
+template <bool kForward>
+__device__ __forceinline__ float lane_carry(float v, bool fl, int lane) {
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const float vs = kForward ? __shfl_up_sync(kFull, v, s)
+                              : __shfl_down_sync(kFull, v, s);
+    const bool fs = kForward ? __shfl_up_sync(kFull, (int)fl, s)
+                             : __shfl_down_sync(kFull, (int)fl, s);
+    if (kForward ? lane >= s : lane + s < 32) {
+      if (!fl) v = kForward ? vs + v : v + vs;
+      fl = fl || fs;
+    }
+  }
+  const float c = kForward ? __shfl_up_sync(kFull, v, 1)
+                           : __shfl_down_sync(kFull, v, 1);
+  return (kForward ? lane == 0 : lane == 31) ? 0.0f : c;
+}
+
+template <int kLink, int V>
+__global__ void __launch_bounds__(kScanWarps * 32)
+binary_grad_scan_reg_kernel(const float* __restrict__ g,
+                            const void* __restrict__ offsets,
+                            float* __restrict__ out, long long rows, int n,
+                            int off_sent, int has_sent, int vec_g, int vec_o) {
+  using OffT = typename std::conditional<kLink == kOffI16, int16_t, int32_t>::type;
+  constexpr int kWg = V < 4 ? V : 4;  // f32 elements a load (16 B at most)
+  constexpr int kWo = V < 16 / (int)sizeof(OffT) ? V : 16 / (int)sizeof(OffT);
+  const long long row = (long long)blockIdx.x * kScanWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps only: the shuffles stay full
+  const int lane = threadIdx.x & 31;
+  const int omax = (kLink == kOffI16) ? INT16_MAX : INT32_MAX;
+  const size_t base = (size_t)row * (size_t)n;
+  const int j0 = lane * V;
+
+  float gm[V];
+  OffT ov[V];
+#pragma unroll
+  for (int e = 0; e < V; e += kWo)
+    load_run<OffT, kWo>(static_cast<const OffT*>(offsets) + base, j0 + e, n,
+                        vec_o, ov + e);
+#pragma unroll
+  for (int e = 0; e < V; e += kWg)
+    load_run<float, kWg>(g + base, j0 + e, n, vec_g, gm + e);
+
+  // decode: the zero sites z; the forward values g [o0 > 0] and the
+  // backward values g [o0 < 0] as bit masks over gm; the self term
+  // g [o0 == 0], df's first part. Past the row and at wall wins
+  // (off_sent) g and o read as 0.
+  unsigned zm = 0u, pm = 0u, nm = 0u;
+  float df[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    int o = (int)ov[e];
+    if (has_sent && o == off_sent) {
+      gm[e] = 0.0f;
+      o = 0;
+    }
+    const bool z = j0 + e < n && o == omax;
+    const int o0 = z ? 0 : o;
+    zm |= (unsigned)z << e;
+    pm |= (unsigned)(o0 > 0) << e;
+    nm |= (unsigned)(o0 < 0) << e;
+    df[e] = o0 == 0 ? gm[e] : 0.0f;
+  }
+
+  // each direction: the lane's own sum, the carry from the lanes before
+  // it, then its voxels in order, a zero site taking the running sum
+  float fwd = 0.0f, bwd = 0.0f;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    fwd = (zm >> e & 1u) ? 0.0f : fwd + ((pm >> e & 1u) ? gm[e] : 0.0f);
+    const int r = V - 1 - e;
+    bwd = (zm >> r & 1u) ? 0.0f : bwd + ((nm >> r & 1u) ? gm[r] : 0.0f);
+  }
+  float run = lane_carry<true>(fwd, zm != 0u, lane);
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    if (zm >> e & 1u) {
+      df[e] = df[e] + run;
+      run = 0.0f;
+    } else if (pm >> e & 1u) {
+      run = run + gm[e];
+    }
+  }
+  run = lane_carry<false>(bwd, zm != 0u, lane);
+#pragma unroll
+  for (int r = V - 1; r >= 0; --r) {
+    if (zm >> r & 1u) {
+      df[r] = df[r] + run;
+      run = 0.0f;
+    } else if (nm >> r & 1u) {
+      run = run + gm[r];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; e += kWg) store_run<kWg>(out + base, j0 + e, n, vec_g, df + e);
+}
+
 template <int kLink>
 cudaError_t launch_grad(const float* g, const void* links, float* out,
                         long long rows, int n, int off_sent, int has_sent,
@@ -260,10 +423,44 @@ cudaError_t launch_grad(const float* g, const void* links, float* out,
   return cudaGetLastError();
 }
 
+template <int kLink, int V>
+cudaError_t launch_scan_reg(const float* g, const void* offsets, float* out,
+                            long long rows, int n, int off_sent, int has_sent,
+                            cudaStream_t stream) {
+  // vector loads where every lane's run starts on their boundary: the row
+  // pitch and the pointers aligned to the load width
+  constexpr int kOff = kLink == kOffI16 ? 2 : 4;
+  constexpr int kWg = V < 4 ? V : 4;
+  constexpr int kWo = V < 16 / kOff ? V : 16 / kOff;
+  const int vec_g = n % kWg == 0 && (uintptr_t)g % (4 * kWg) == 0 &&
+                    (uintptr_t)out % (4 * kWg) == 0;
+  const int vec_o = n % kWo == 0 && (uintptr_t)offsets % (kOff * kWo) == 0;
+  const long long blocks = (rows + kScanWarps - 1) / kScanWarps;
+  binary_grad_scan_reg_kernel<kLink, V><<<(unsigned)blocks, kScanWarps * 32, 0,
+                                          stream>>>(
+      g, offsets, out, rows, n, off_sent, has_sent, vec_g, vec_o);
+  return cudaGetLastError();
+}
+
 template <int kLink>
 cudaError_t launch_scan(const float* g, const void* offsets, float* out,
                         long long rows, int n, int off_sent, int has_sent,
                         cudaStream_t stream) {
+  // rows a warp holds in registers: V voxels a lane, the least power of two
+  // with 32 V >= n; longer rows: the two sweeps
+  if (n <= 32)
+    return launch_scan_reg<kLink, 1>(g, offsets, out, rows, n, off_sent, has_sent, stream);
+  if (n <= 64)
+    return launch_scan_reg<kLink, 2>(g, offsets, out, rows, n, off_sent, has_sent, stream);
+  if (n <= 128)
+    return launch_scan_reg<kLink, 4>(g, offsets, out, rows, n, off_sent, has_sent, stream);
+  if (n <= 256)
+    return launch_scan_reg<kLink, 8>(g, offsets, out, rows, n, off_sent, has_sent, stream);
+  if (n <= 512)
+    return launch_scan_reg<kLink, 16>(g, offsets, out, rows, n, off_sent, has_sent, stream);
+  if (n <= 32 * kScanRegMax)
+    return launch_scan_reg<kLink, kScanRegMax>(g, offsets, out, rows, n, off_sent,
+                                               has_sent, stream);
   const long long blocks = (rows + kScanWarps - 1) / kScanWarps;
   binary_grad_scan_kernel<kLink><<<(unsigned)blocks, kScanWarps * 32, 0, stream>>>(
       g, offsets, out, rows, n, off_sent, has_sent);

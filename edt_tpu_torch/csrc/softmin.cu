@@ -29,17 +29,31 @@
 //
 // Design.
 //
-// - K5 (first version: right and simple). One block per row, 256 threads
-//   at most; each thread owns the positions tid, tid + blockDim, ... It
-//   stages f in dynamic shared memory (4 B a voxel) and reduces the row's
-//   floor minf. Each target scans outward from k = 0 for the hard min and
-//   stops at the first k with w2 k^2 > dmin_i - minf (no farther candidate
-//   can go below dmin_i: cost >= minf + w2 k^2). It then sums the exps
-//   outward while w2 k^2 <= dmin_i + 30 t - minf: a per-target radius, the
-//   TPU's per-tile radius (_softmin_kernel's gap_s) taken one target at a
-//   time. Every term it leaves out has cost - dmin > 30 t, so the result is
-//   the TPU's to f32 round-off. Exps and logs are the accurate expf and
-//   logf.
+// - K5. Each target takes one walk outward over its row, from m = f_i and
+//   s = 1, steps k = 1, 2, ... on both sides, stopped exactly under the
+//   row's floor minf once (minf + w2 k^2) - m > 30 t: no farther candidate
+//   can lower m or come inside the cut, since m >= dmin. The sum s holds
+//   the weights against the running min m: a candidate below m rescales s
+//   by exp((c - m) / t) and adds its 1 (one exp each time m falls), one
+//   inside the running cut, (f_j + w2 k^2) - m <= 30 t rounded as K6's
+//   test, adds its weight, and the window's other candidates cost a load,
+//   an add and a min, no exp. Every pair the function needs is inside the
+//   running cut when the walk meets it. A weight is ex2.approx of
+//   x log2(e) / t, the factor formed once; d_i = m - t ln2 lg2.approx(s).
+//   The steps come in pairs, one stop test a pair, w2 k^2 from a table;
+//   a pair with at most one candidate inside the cut takes it without a
+//   branch (softmin_target). Two walks, the hard min first and then the
+//   exps against it, were slower on the DistanceFieldNet step's passes
+//   (PERF.md): each walks the same window. Rows up to kWarpMaxN = 2048
+//   belong to one warp each, kWarpRows = 4 rows a block: the warp stages
+//   its row between two pads of INF (n + 2 each side, so no step tests the
+//   row's ends) beside its table (16 B a voxel in all), reduces minf with
+//   shuffles, and takes the targets 32 at a time, lane l the target
+//   i0 + l, so a warp's targets are neighbours with radii alike. Longer
+//   rows belong to a block each, f alone in shared memory (4 B a voxel:
+//   the axis ceiling), one step at a time with the ends tested. The sums
+//   run in a fixed order with no atomics: the same bits from launch to
+//   launch.
 // - K6. One warp a row, four rows a block. The warp stages the row's f in
 //   shared memory beside a df accumulator of the row (8 B a voxel: the axis
 //   ceiling is the opt-in shared memory over 8), reduces minf with shuffles,
@@ -62,22 +76,22 @@
 //   ex2.approx of x * log2(e) / t, the factor formed once; Z_i takes one
 //   reciprocal a target.
 //
-// The axis ceilings are the opt-in shared memory over 4 (K5) and over 8
-// (K6). Costs round twice, __fadd_rn(f, __fmul_rn(w2, __fmul_rn(k, k))), as
-// in K1 and K2 (built with -fmad=false as well).
+// The axis ceilings are the opt-in shared memory over 4 (K5, on rows a
+// block holds) and over 8 (K6). Costs round twice,
+// __fadd_rn(f, __fmul_rn(w2, __fmul_rn(k, k))), as in K1 and K2 (built
+// with -fmad=false as well).
 //
 // Bound on the card: K5 reads f and writes d (8 B a voxel), K6 reads f, d
-// and g and writes df and e (20 B a voxel). The work is one exp a term
-// inside the cut (plus, for K5, the hard-min candidates), so the
-// special-function units bind where the cut holds many terms and the bytes
-// where it holds few. K5 does nothing yet to reach either bound: one row per
-// block leaves loads uncoalesced across rows, and threads of a warp wait for
-// the longest radius among them. K6 pays one exp a pair inside the cut
-// within its first kHeld steps and two further out (Z_i, then df), and its
-// first pass walks the whole window: a candidate between minf and the cut
-// costs a load and a compare. Long windows over few pairs (an untrained
-// DistanceFieldNet's first pass: 36 candidates for one pair a voxel) are
-// what is left of its time.
+// and g and writes df and e (20 B a voxel). The work the function needs is
+// one exp a pair inside the cut, so the special-function units bind where
+// the cut holds many pairs and the bytes where it holds few. What holds K5
+// is neither: its walk. Each target visits the candidates of its window,
+// w2 k^2 <= m + 30 t - minf, a load, an add and a min each, and a warp runs
+// as many steps as its slowest target; an untrained DistanceFieldNet's
+// first pass holds about 36 candidates a window for one pair a voxel
+// inside the cut. K6 pays one exp a pair inside the cut within its first
+// kHeld steps and two further out (Z_i, then df), and its first pass walks
+// the same long windows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,6 +99,8 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kWarpRows = 4;  // K5: rows a block on rows a warp holds
+constexpr int kWarpMaxN = 2048;  // K5: the longest row a warp holds
 constexpr float kSoftCut = 30.0f;
 
 // Block-wide min of lo and max of hi, returned to every thread. Also a
@@ -110,14 +126,142 @@ __device__ __forceinline__ void block_min_max(float& lo, float& hi) {
   }
 }
 
-__device__ __forceinline__ float quad(float w2, int k) {
-  const float kf = (float)k;
+__device__ __forceinline__ float quad(float w2, float kf) {
   return __fmul_rn(w2, __fmul_rn(kf, kf));
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// One candidate at cost c of target i's walk. The sum s holds the weights
+// exp((m - cost) / t) against the running min m: a candidate below m
+// rescales s to its own cost and adds its 1, one inside the running cut
+// (x = m - c >= -30 t, the same rounded test as K6's) adds its weight, any
+// other adds nothing. Every candidate inside the final cut is inside the
+// running one (m >= dmin), and a term taken against an m that later falls
+// is rescaled with it.
+__device__ __forceinline__ void soft_take(float c, float ncut, float scale,
+                                          float& m, float& s) {
+  const float x = __fsub_rn(m, c);
+  if (x > 0.0f) {
+    s = __fadd_rn(__fmul_rn(s, ex2(__fmul_rn(-x, scale))), 1.0f);
+    m = c;
+  } else if (x >= ncut) {
+    s = __fadd_rn(s, ex2(__fmul_rn(x, scale)));
+  }
+}
+
+// d = m - t log s; m where s == 0 (an all-INF window keeps INF).
+__device__ __forceinline__ float soft_finish(float m, float s, float t) {
+  return s > 0.0f ? __fsub_rn(m, __fmul_rn(__fmul_rn(t, kLn2), lg2(s))) : m;
+}
+
+// d of target i from its row p[0, n) (p[-k], p[k] readable, INF outside
+// the row, for k <= kmax + 1) and the table q[k] = w2 k^2: one walk
+// outward from m = f_i, s = 1, in pairs of steps (k, k + 1), until
+// (minf + w2 k^2) - m > 30 t before a pair (exact: m >= dmin, and no
+// farther candidate costs less than minf + w2 k^2). A pair whose second
+// least cost lies outside the cut of min(m, its least) takes at most its
+// least one, without a branch: one exp, weighted by whether it lowers m,
+// lies inside the cut, or neither. A pair with two or more inside the cut
+// takes its four one at a time (branch-free there too was slower where
+// the cut holds several pairs a voxel). So a lane whose pair holds one
+// candidate inside the cut, the common case on long windows, makes no
+// other lane wait for its exps. The second step of a pair may lie past
+// the stop or the row: its candidates are real, or INF, and change
+// nothing they should not.
+__device__ __forceinline__ float softmin_target(const float* p,
+                                                const float* q, int kmax,
+                                                float minf, float t,
+                                                float ncut, float scale) {
+  float m = p[0];
+  float s = 1.0f;
+  for (int k = 1; k <= kmax; k += 2) {
+    const float q1 = q[k], q2 = q[k + 1];
+    if (__fsub_rn(__fadd_rn(minf, q1), m) > -ncut) break;
+    const float c1 = __fadd_rn(p[-k], q1), c2 = __fadd_rn(p[k], q1);
+    const float c3 = __fadd_rn(p[-k - 1], q2), c4 = __fadd_rn(p[k + 1], q2);
+    const float a = fminf(c1, c2), b = fminf(c3, c4);
+    const float lo = fminf(a, b);
+    const float lo2 = fminf(fmaxf(a, b), fminf(fmaxf(c1, c2), fmaxf(c3, c4)));
+    const float mn = fminf(m, lo);
+    if (__fsub_rn(mn, lo2) >= ncut) {
+      soft_take(c1, ncut, scale, m, s);
+      soft_take(c2, ncut, scale, m, s);
+      soft_take(c3, ncut, scale, m, s);
+      soft_take(c4, ncut, scale, m, s);
+    } else {
+      const float x = __fsub_rn(m, lo);
+      const float e = ex2(__fmul_rn(fminf(x, -x), scale));
+      s = x > 0.0f ? __fadd_rn(__fmul_rn(s, e), 1.0f)
+                   : (x >= ncut ? __fadd_rn(s, e) : s);
+      m = mn;
+    }
+  }
+  return soft_finish(m, s, t);
+}
+
+// K5 on rows a warp holds (n <= kWarpMaxN): one warp a row, kWarpRows rows a
+// block. The warp stages its row between two pads of INF (pad = n + 2 on
+// each side) beside its table of w2 k^2 (16 B a voxel in all), reduces
+// minf with shuffles, and takes the targets 32 at a time, lane l the
+// target i0 + l.
+__global__ void __launch_bounds__(32 * kWarpRows)
+softmin_warp_kernel(const float* __restrict__ f, float* __restrict__ out,
+                    long long rows, int n, float w2, float t) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp: no block-wide barrier follows
+  const int pad = n + 2;
+  // each warp its own table q[k] = w2 k^2, k <= n, and its padded row
+  float* s_q = smem + (size_t)(threadIdx.x >> 5) * (n + 2 + n + 2 * pad);
+  float* s_f = s_q + n + 2 + pad;
+  const size_t base = (size_t)row * (size_t)n;
+  for (int k = lane; k < n + 2; k += 32) s_q[k] = quad(w2, (float)k);
+
+  float minf = INFINITY;
+  for (int j = lane; j < n; j += 32) {
+    const float fj = f[base + j];
+    s_f[j] = fj;
+    minf = fminf(minf, fj);
+  }
+  for (int j = lane; j < pad; j += 32) {
+    s_f[-1 - j] = INFINITY;
+    s_f[n + j] = INFINITY;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    minf = fminf(minf, __shfl_xor_sync(0xffffffffu, minf, off));
+  __syncwarp();
+
+  const float ncut = -__fmul_rn(kSoftCut, t);
+  const float scale = __fdiv_rn(kLog2e, t);  // exponents in base 2
+  for (int i = lane; i < n; i += 32) {
+    out[base + i] = minf == INFINITY  // all-INF row: d stays INF
+        ? INFINITY
+        : softmin_target(s_f + i, s_q, max(i, n - 1 - i), minf, t, ncut,
+                         scale);
+  }
+}
+
+// K5 on longer rows: one block a row, f in shared memory (4 B a voxel: the
+// axis ceiling), the same walks with the row's ends tested.
 __global__ void __launch_bounds__(kMaxThreads)
-softmin_kernel(const float* __restrict__ f, float* __restrict__ out, int n,
-               float w2, float t) {
+softmin_block_kernel(const float* __restrict__ f, float* __restrict__ out,
+                     int n, float w2, float t) {
   extern __shared__ float s_f[];
   const size_t base = (size_t)blockIdx.x * (size_t)n;
 
@@ -134,44 +278,26 @@ softmin_kernel(const float* __restrict__ f, float* __restrict__ out, int n,
     for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = INFINITY;
     return;
   }
-  const float invt = __fdiv_rn(1.0f, t);
-  const float cut = __fmul_rn(kSoftCut, t);
+  const float ncut = -__fmul_rn(kSoftCut, t);
+  const float scale = __fdiv_rn(kLog2e, t);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int kmax = max(i, n - 1 - i);
-    // phase A: the hard min, outward until no candidate can go below it
-    float dmin = s_f[i];
+    float m = s_f[i];
+    float s = 1.0f;
+    float kf = 1.0f;
     for (int k = 1; k <= kmax; ++k) {
-      const float q = quad(w2, k);
-      if (q > __fsub_rn(dmin, minf)) break;
-      if (i - k >= 0) dmin = fminf(dmin, __fadd_rn(s_f[i - k], q));
-      if (i + k < n) dmin = fminf(dmin, __fadd_rn(s_f[i + k], q));
+      const float q = quad(w2, kf);
+      if (__fsub_rn(__fadd_rn(minf, q), m) > -ncut) break;
+      if (i - k >= 0) soft_take(__fadd_rn(s_f[i - k], q), ncut, scale, m, s);
+      if (i + k < n) soft_take(__fadd_rn(s_f[i + k], q), ncut, scale, m, s);
+      kf = __fadd_rn(kf, 1.0f);
     }
-    // phase B: the shifted exps inside the cut
-    const float gap = __fsub_rn(__fadd_rn(dmin, cut), minf);
-    float s = expf(__fmul_rn(__fsub_rn(dmin, s_f[i]), invt));
-    for (int k = 1; k <= kmax; ++k) {
-      const float q = quad(w2, k);
-      if (q > gap) break;
-      if (i - k >= 0)
-        s = __fadd_rn(s, expf(__fmul_rn(
-                             __fsub_rn(dmin, __fadd_rn(s_f[i - k], q)), invt)));
-      if (i + k < n)
-        s = __fadd_rn(s, expf(__fmul_rn(
-                             __fsub_rn(dmin, __fadd_rn(s_f[i + k], q)), invt)));
-    }
-    out[base + i] = s > 0.0f ? __fsub_rn(dmin, __fmul_rn(t, logf(s))) : dmin;
+    out[base + i] = soft_finish(m, s, t);
   }
 }
 
 constexpr int kGradRows = 4;  // K6: rows a block, one warp each
 constexpr int kHeld = 4;  // K6: steps whose weights a lane keeps for the scatter
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The weight of target i's pair at cost fj + q, or 0 outside the cut
 // (x = d_i - cost < -30 t); a weight is summed into z and acc_e.
@@ -312,13 +438,27 @@ extern "C" {
 // f, out: (rows, n) f32, C-contiguous. Returns a cudaError_t.
 int edt_softmin(const void* f, void* out, long long rows, int n, float w2,
                 float t, void* stream) {
+  if (n <= kWarpMaxN) {  // a warp a row, its row between two pads of INF
+    const long long per_block = rows < kWarpRows ? rows : kWarpRows;
+    const size_t smem = (size_t)per_block * (4 * (size_t)n + 6) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        softmin_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (rows + kWarpRows - 1) / kWarpRows;
+    softmin_warp_kernel<<<(unsigned)blocks, 32 * kWarpRows, smem,
+                          (cudaStream_t)stream>>>((const float*)f,
+                                                  (float*)out, rows, n, w2, t);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      softmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      softmin_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  softmin_kernel<<<(unsigned)rows, threads_for(n), smem,
-                   (cudaStream_t)stream>>>((const float*)f, (float*)out, n,
-                                           w2, t);
+  softmin_block_kernel<<<(unsigned)rows, threads_for(n), smem,
+                         (cudaStream_t)stream>>>((const float*)f, (float*)out,
+                                                 n, w2, t);
   return (int)cudaGetLastError();
 }
 

@@ -296,8 +296,20 @@ def _passes(f, anis, black_border, temperature, binary_heights, kernels,
     return f
 
 
+def _single_device(axis_name):
+    """The sharded passes (``axis_name``, the JAX package's mesh axis of a
+    volume sharded along axis 0) are not ported yet: ROADMAP.md, Queue A
+    item 6. The argument keeps its JAX position, so positional calls bind
+    as they do there."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"axis_name={axis_name!r}: the sharded soft passes are not ported "
+            "yet (ROADMAP.md, Queue A item 6)")
+
+
 def edtsq_from_heights(h, anisotropy, black_border=False, temperature=0.0,
-                       binary_heights=False, *, device=None, kernels=KERNELS):
+                       axis_name=None, binary_heights=False, *, device=None,
+                       kernels=KERNELS):
     """Differentiable squared EDT of a height field (N-D, separable).
 
     h: heights, 0 at sources and +barrier at solid foreground. Returns the
@@ -306,7 +318,9 @@ def edtsq_from_heights(h, anisotropy, black_border=False, temperature=0.0,
     binary_heights: the caller's promise that h takes exactly two values
     {0, B}; at temperature 0 the first pass then runs the closed form with
     the same values, argmins and gradients (silently wrong otherwise).
+    axis_name must be None (single device).
     """
+    _single_device(axis_name)
     f = _as_tensor(h, _resolve_device([h], device)).to(F32)
     anis = np.asarray(anisotropy, np.float32).reshape(f.dim())
     return _passes(f, anis, black_border, temperature, binary_heights,
@@ -325,12 +339,13 @@ def default_barrier(shape, anisotropy) -> float:
 
 
 def soft_edtsq(occupancy, anisotropy, black_border=False, barrier=None,
-               temperature=0.0, binary_occupancy=False, *, device=None,
-               kernels=KERNELS):
+               temperature=0.0, axis_name=None, binary_occupancy=False, *,
+               device=None, kernels=KERNELS):
     """Squared EDT of a soft occupancy map (1 = foreground, 0 =
     background), differentiable w.r.t. occupancy. binary_occupancy
     promises values in {0, 1}: at temperature 0 the first pass then runs
-    the closed form."""
+    the closed form. axis_name must be None (single device)."""
+    _single_device(axis_name)
     dev = _resolve_device([occupancy, barrier], device)
     occ = _as_tensor(occupancy, dev)
     if barrier is None:
@@ -356,8 +371,11 @@ def _soft_edtsq_batch(occupancy, anisotropy, black_border=False,
 
 
 def soft_sdfsq(occupancy, anisotropy, black_border=False, barrier=None,
-               temperature=0.0, *, device=None, kernels=KERNELS):
-    """Differentiable signed squared distance: d(occ) - d(1 - occ)."""
+               temperature=0.0, axis_name=None, *, device=None,
+               kernels=KERNELS):
+    """Differentiable signed squared distance: d(occ) - d(1 - occ).
+    axis_name must be None (single device)."""
+    _single_device(axis_name)
     dev = _resolve_device([occupancy, barrier], device)
     occ = _as_tensor(occupancy, dev)
     fg = soft_edtsq(occ, anisotropy, black_border, barrier, temperature,
@@ -429,8 +447,8 @@ def _multilabel_pass(f, wall_cnt_ax, w, temperature=0.0, binary_heights=False,
 
 def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
                      black_border=False, barrier=None, temperature=0.0,
-                     binary_occupancy=None, wall_counts=None, *, device=None,
-                     kernels=KERNELS):
+                     axis_name=None, binary_occupancy=None, wall_counts=None, *,
+                     device=None, kernels=KERNELS):
     """Differentiable multi-label squared EDT, wall-faithful to the
     reference (boundary voxels at distance w).
 
@@ -444,7 +462,9 @@ def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
     tuple of ``wall_counts_for(labels, black_border)``, from the SAME
     labels and black_border. temperature > 0 runs the softmin passes, the
     walls blended in with logaddexp; binary_occupancy then has no effect.
+    axis_name must be None (single device).
     """
+    _single_device(axis_name)
     dev = _resolve_device([labels, occupancy, barrier, *(wall_counts or ())],
                           device)
     lab = _labels_tensor(labels, dev)

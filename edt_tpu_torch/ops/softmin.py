@@ -33,9 +33,10 @@ from edt_tpu_torch.ops.minplus import MAX_SMEM_BYTES, PLAIN_COST_BYTES, _check
 SOFT_CUT = 30.0
 
 # Longest rows the kernels take: K5 stages the f32 row in shared memory
-# (4 B a voxel), K6 the row of f beside its f32 df accumulator (8 B a
-# voxel), within an H100 block's opt-in 232448 bytes less the kernels' few
-# static bytes. Longer axes raise.
+# (4 B a voxel on rows a block holds; rows up to 2048 a warp holds, with
+# pads and a table, 16 B a voxel), K6 the row of f beside its f32 df
+# accumulator (8 B a voxel), within an H100 block's opt-in 232448 bytes
+# less the kernels' few static bytes. Longer axes raise.
 MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
 GRAD_MAX_AXIS = (MAX_SMEM_BYTES - 256) // 8
 

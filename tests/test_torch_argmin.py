@@ -13,6 +13,9 @@ Tolerances:
   shift-and-add steps: the same terms in another order.
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -278,3 +281,43 @@ def test_wrappers_take_plain_only_on_cpu():
         grad.minplus_grad(g)
     with pytest.raises(ValueError, match="walls must be"):
         argmin.minplus_argmin(ft, w2, ct.to(torch.int64))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 512, 700])
+def test_k4_blocked_emulation_matches_plain_and_jax(n):
+    """K4's lane-blocked scan (V contiguous voxels a lane, the lane sums
+    scanned across the warp), emulated in torch by
+    ``chip_smoke.k4_blocked``: within rtol=1e-5, atol=1e-5 of the plain
+    version and of the Pallas kernel in interpret mode (the same sums in
+    another order), with zero sites on lane boundaries, rows without zero
+    sites, rows of zero sites only, and wall wins (off_sent)."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(n)
+    top, sent = np.iinfo(np.int16).max, np.iinfo(np.int16).min
+    v = cs.k4_lanes(n)
+    i = np.arange(n)
+    o = rng.integers(-6, 7, size=(12, n))
+    o[:3, (i % v == 0) | (i % v == v - 1)] = top
+    o[3:6][rng.random((3, n)) < 0.2] = top
+    o[6] = top  # row 7: no zero site, row 6: zero sites only
+    o[8:, [0, n - 1]] = top
+    g = rng.uniform(-1, 1, (12, n)).astype(np.float32)
+    for s in (None, sent):
+        oo = o if s is None else np.where(rng.random(o.shape) < 0.1, s, o)
+        oo = oo.astype(np.int16)
+        got = cs.k4_blocked(torch.from_numpy(g), torch.from_numpy(oo), s)
+        ref = grad.binary_grad_scan_plain(torch.from_numpy(g),
+                                          torch.from_numpy(oo), s)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        kern = np.asarray(pk.binary_grad_scan_pallas(
+            jnp.asarray(g), jnp.asarray(oo), off_sent=s, interpret=True))
+        np.testing.assert_allclose(got.numpy(), kern, rtol=1e-5, atol=1e-5)

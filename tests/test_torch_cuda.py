@@ -413,3 +413,95 @@ def test_softmin_grad_kernel_ceiling(cuda):
     big = torch.zeros((1, n + 1), device=cuda)
     with pytest.raises(ValueError, match="exceed"):
         softmin.softmin_grad(big, big, big, 36.0, 0.3)
+
+
+def _k5_rows(kind, n, rng):
+    """(f, w2) rows for K5's walks: heights near 3e7 (ulp 2), partly INF
+    rows with a wholly INF one and one of a single finite height, and
+    DistanceFieldNet-like rows (w2 = 1, heights of n^2 / 2)."""
+    rows = 12 if n <= 257 else 4
+    if kind == "near-3e7":
+        f = (3e7 + rng.random((rows, n)) * 200).astype(np.float32)
+        f[rows // 2:, ::97] = 2.99999e7
+        return f, 0.7
+    if kind == "partly-inf":
+        f = (rng.random((rows, n)) * 900).astype(np.float32)
+        f[rng.random((rows, n)) < 0.3] = np.inf
+        f[1] = np.inf
+        f[2] = np.inf
+        f[2, rng.integers(0, n)] = 5.0
+        return f, 900.0
+    return _distance_net_rows(rng, rows, n), 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 256, 257, 2048, 2049])
+def test_softmin_kernel_walks(cuda, n):
+    """K5 in both regimes (a warp a row up to 2048, a block a row beyond)
+    on rows that stress its walks and its cut, t in {0.01, 0.3, 1}: within
+    rtol=1e-5, atol=1e-4 of the plain version, the same INF pattern, the
+    same bits from two launches."""
+    rng = np.random.default_rng(n + 1)
+    for kind in ("near-3e7", "partly-inf", "distance-net"):
+        f, w2 = _k5_rows(kind, n, rng)
+        ft = torch.from_numpy(f).to(cuda)
+        for t in (0.01, 0.3, 1.0):
+            d = softmin.softmin(ft, w2, t)
+            rd = softmin.softmin_plain(ft, w2, t)
+            fin = torch.isfinite(rd)
+            assert torch.equal(torch.isfinite(d), fin)
+            torch.testing.assert_close(d[fin], rd[fin], rtol=1e-5, atol=1e-4)
+            again = softmin.softmin(ft, w2, t)
+            assert torch.equal(d.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_softmin_kernel_ceiling(cuda):
+    """K5 takes rows up to 58048 and raises beyond: random heights with
+    INF every third voxel against the plain arithmetic taken 256 targets
+    at a time."""
+    n = softmin.MAX_AXIS
+    assert n == 58048
+    rng = np.random.default_rng(4)
+    f = torch.from_numpy((rng.random((2, n)) * 900).astype(np.float32)).to(cuda)
+    f[1, ::3] = float("inf")
+    d = softmin.softmin(f, 36.0, 0.3)
+    j = torch.arange(n, dtype=torch.float32, device=cuda)
+    for i0 in range(0, n, 256):
+        diff = j[i0:i0 + 256, None] - j[None, :]
+        cost = f[:, None, :] + (diff * diff) * 36.0
+        ref = -0.3 * torch.logsumexp(-cost / 0.3, dim=-1)
+        torch.testing.assert_close(d[:, i0:i0 + 256], ref, rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="exceed"):
+        softmin.softmin(torch.zeros((1, n + 1), device=cuda), 36.0, 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 31, 33, 512, 513, 1024, 1025, 3000])
+def test_binary_grad_scan_kernel_lanes(cuda, n):
+    """K4 on rows a warp holds in registers (n <= 1024) and past them (the
+    two sweeps): zero sites on the lane boundaries, on the first and last
+    voxel only, rows without and rows of only zero sites, wall wins at
+    off_sent, int16 and int32 offsets; within rtol=1e-5, atol=1e-5 of the
+    plain version, the same bits from two launches."""
+    rng = np.random.default_rng(n)
+    v = 1
+    while 32 * v < n:
+        v *= 2
+    i = np.arange(n)
+    for idt in (torch.int16, torch.int32):
+        top, sent = torch.iinfo(idt).max, torch.iinfo(idt).min
+        o = rng.integers(-6, 7, size=(10, n))
+        o[:2, (i % v == 0) | (i % v == v - 1)] = top
+        o[2:4][rng.random((2, n)) < 0.2] = top
+        o[5] = top  # row 4: no zero site, row 5: zero sites only
+        o[6:8, [0, n - 1]] = top
+        o[8:] = np.where(rng.random((2, n)) < 0.1, sent, o[8:])
+        g = torch.from_numpy(rng.uniform(-1, 1, (10, n)).astype(np.float32)).to(cuda)
+        ot = torch.from_numpy(o).to(idt).to(cuda)
+        for s in (None, sent):
+            got = grad.binary_grad_scan(g, ot, off_sent=s)
+            ref = grad.binary_grad_scan_plain(g, ot, off_sent=s)
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+            again = grad.binary_grad_scan(g, ot, off_sent=s)
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))

@@ -258,3 +258,39 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         soft.multilabel_edtsq(_labels(10))
+
+
+def test_positional_arguments_bind_as_in_jax():
+    """Every differentiable transform takes ``axis_name`` at the JAX
+    package's position, so the same positional call gives the same
+    forward, bit for bit; a set axis_name raises until the sharded passes
+    are ported."""
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 3, (8, 9, 10)).astype(np.int32)
+    occ = (labels != 0).astype(np.float32)
+    h = (50 * rng.random((6, 7, 8))).astype(np.float32)
+    hb = np.where(h > 25, np.float32(50), np.float32(0))
+    an = (1.0, 2.0, 3.0)
+    lab_j, lab_t = jnp.asarray(labels), torch.from_numpy(labels)
+    cases = [  # (JAX function, port function, array, positional tail)
+        (lambda o, *a: jsoft.multilabel_edtsq(lab_j, o, *a),
+         lambda o, *a, **k: soft.multilabel_edtsq(lab_t, o, *a, **k),
+         occ, (an, True, None, 0.0, None, True)),
+        (jsoft.soft_edtsq, soft.soft_edtsq, occ,
+         (an, True, None, 0.0, None, True)),
+        (jsoft.soft_sdfsq, soft.soft_sdfsq, occ, (an, True, None, 0.0, None)),
+        (jsoft.edtsq_from_heights, soft.edtsq_from_heights, h,
+         (an, False, 0.0, None, False)),
+        (jsoft.edtsq_from_heights, soft.edtsq_from_heights, hb,
+         (an, False, 0.0, None, True)),
+    ]
+    for jfn, tfn, x, args in cases:
+        ref = np.asarray(jax.jit(lambda v: jfn(v, *args))(jnp.asarray(x)))  # noqa: B023
+        got = tfn(torch.from_numpy(x), *args).numpy()
+        assert got.dtype == ref.dtype and np.array_equal(got, ref)
+        # axis_name is the argument after temperature
+        k = 4 if jfn is jsoft.edtsq_from_heights else 5
+        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+            tfn(torch.from_numpy(x), *args[:k - 1], "x")
+        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+            tfn(torch.from_numpy(x), *args[:2], axis_name="x")

@@ -12,6 +12,9 @@ sum(g * e) against the gradient w.r.t. w2, rtol=1e-3 (a sum over every
 weight of the row).
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -127,3 +130,38 @@ def test_grad_kernel_ceiling():
     g), half of K5's 58048; the autograd path at t > 0 follows it."""
     assert softmin.GRAD_MAX_AXIS == (softmin.MAX_SMEM_BYTES - 256) // 8
     assert softmin.GRAD_MAX_AXIS == 29024 >= 19349
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kind", ["random", "barrier", "mixed", "distance-net"])
+def test_search_emulation_matches_plain_and_jax(kind):
+    """K5's walk (one walk under the row-min floor, the sum held against
+    the running min, an exp only for a candidate below it or inside its
+    cut), emulated in torch by ``chip_smoke.k5_search``: within the forward
+    tolerances of the plain version and of the Pallas kernel; the terms its
+    sum takes cover the pairs inside the cut that ``chip_smoke.k5_pairs``
+    counts, and it visits what ``k5_pairs`` says it does."""
+    cs = _chip_smoke()
+    if kind == "distance-net":  # an untrained head's heights, long walks
+        f = cs.distance_net_rows(np.random.default_rng(5), 8, 256,
+                                 256 * 256 / 2)
+        w2, t = 1.0, 0.3
+    else:
+        f, w2, t = _case(kind)
+    ft = torch.from_numpy(f)
+    d, taken, exps, visited, _, _ = cs.k5_search(ft, w2, t)
+    np.testing.assert_allclose(d.numpy(), softmin.softmin_plain(ft, w2, t),
+                               rtol=1e-5, atol=1e-4)
+    kern = np.asarray(pk.softmin_pallas(jnp.asarray(f), jnp.float32(w2),
+                                        jnp.float32(t), interpret=True))
+    np.testing.assert_allclose(d.numpy(), kern, rtol=1e-5, atol=1e-4)
+    needed, hard, visited2 = cs.k5_pairs(ft, w2, t)
+    assert visited == visited2
+    assert needed <= taken <= visited and exps < taken and hard <= visited
