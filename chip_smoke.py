@@ -26,7 +26,15 @@ paths:
   transforms at 128^3 against the plain path, ``benchmarks/run.py``'s
   smooth training cell (soft_edtsq fwd+bwd at t = 0.3 on 256^3), and the
   single-device trainers: DistanceFieldNet at 2 x 256^3 and UNet3D at
-  2 x 128^3.
+  2 x 128^3;
+- slice 7, the modules on K1 (phases ``vg``, ``each`` and ``export``): the
+  voxel-graph transform at 256^3 (512^3 doubled) through the NumPy API,
+  bit-exact to the volume doubled on the host through the plain pass;
+  the SNEMI3D-like 512 x 512 x 100 per-label cell, where the host RLE
+  kit's ``each`` (native, built with g++), ``torch_api.each_device`` and
+  ``extract_labels`` give equal images; and the 512^3 forward exported
+  with ``torch.export`` (K1 as a custom op), saved, loaded and bit-exact
+  to ``compose.edtsq``.
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -2112,6 +2120,224 @@ def phase_unet3d(close, dev):
           "median of 3")
 
 
+VG_FULL = 256  # benchmarks/run.py's voxel-graph cell, doubled to 512^3
+OMNI = 0b111111
+
+
+def vg_graph(rng, shape):
+    """An omni graph with about 10 % of each of its +x/+y/+z bits cleared."""
+    g = np.full(shape, OMNI, np.uint8)
+    for bit in (0b1, 0b100, 0b10000):
+        g[rng.random(shape) < 0.1] &= np.uint8(~bit & 0xFF)
+    return g
+
+
+def k1_alone_on_passes(exact, label, lt, aniso, bb, binary):
+    """K1 alone on each parabolic pass of ``compose.edtsq``'s default order
+    (the closed form along axis 2, K1 along axes 1 then 0): ms a pass,
+    bound, candidates a voxel visited and steps a target and a warp's
+    (``k1_search``), each pass bit-exact to the emulation."""
+    from edt_tpu_torch.ops import compose, core, minplus
+
+    f = compose._along_last(
+        lambda lab: core.rp_pass_sq(lab, aniso[2], bb), 2, lt)
+    for axis in (1, 0):
+        n = lt.shape[axis]
+        f2 = f.movedim(axis, -1).contiguous().reshape(-1, n)
+        ss = se = None
+        if not binary:
+            ss, se = core.segment_bounds(
+                lt.movedim(axis, -1).contiguous().reshape(-1, n))
+        w = core.f32(aniso[axis])
+        w2 = core.f32(w * w)
+        k1 = lambda: minplus.minplus_walls(f2, ss, se, w2, bb, not binary)  # noqa: E731
+        ms, _ = cuda_ms(k1, reps=10)
+        d2 = k1()
+        emul, visited, steps, warp_steps = k1_search(f2, ss, se, w2, bb,
+                                                     not binary)
+        exact.check(f"{label} K1 pass axis {axis} vs its emulated search",
+                    d2, emul)
+        del emul
+        bms, by = k1_bound_ms(f2, ss, se, w2, bb, not binary, visited)
+        vox = f2.numel()
+        print(f"{label}: K1 pass along axis {axis} {tuple(f2.shape)}: "
+              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}); {visited / vox:.2f} "
+              f"candidates a voxel visited in {steps / vox:.2f} steps a "
+              f"target, {warp_steps / vox:.2f} a warp's")
+        f = d2.reshape(f.movedim(axis, -1).shape).movedim(-1, axis)
+        del f2, d2
+
+
+def phase_voxel_graph(exact, dev):
+    """The voxel-graph transform at 256^3 (512^3 doubled) through the
+    NumPy API, bit-exact against the volume doubled on the host, run
+    through the plain parabolic pass on the card and subsampled; K1
+    launched twice a transform."""
+    import edt_tpu_torch as et
+    from edt_tpu_torch.ops import compose, minplus
+    from edt_tpu_torch.ops import voxel_graph as vg
+
+    S = VG_FULL
+    plain = minplus.make_parabolic_fn(minplus.minplus_walls_plain)
+    rng = np.random.default_rng(11)
+    cases = [("omni ones", np.ones((S,) * 3, np.uint8),
+              np.full((S,) * 3, OMNI, np.uint8), (1.0, 1.0, 1.0)),
+             ("multi-label, random graph", make_labels(rng, S),
+              vg_graph(rng, (S,) * 3), ANISO)]
+    for name, data, graph, aniso in cases:
+        label = f"{S}^3 voxel graph, {name}, {aniso}"
+        torch.cuda.reset_peak_memory_stats()
+        minplus.launches = 0
+        out = et.edtsq(data, aniso, True, voxel_graph=graph, device=dev)
+        launches = minplus.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches != 2:
+            raise AssertionError(f"{label}: K1 launched {launches} times, "
+                                 "expected 2")
+        if out.shape != data.shape or out.dtype != np.float32 \
+                or not np.isfinite(out).all():
+            raise AssertionError(f"{label}: wrong shape, dtype or non-finite")
+        D = torch.from_numpy(vg._doubled_3d((data != 0).astype(np.uint8),
+                                            graph, True)).to(dev)
+        half = [a / 2 for a in aniso]
+        ref = compose.edtsq(D, half, True, binary=True,
+                            parabolic_fn=plain)[::2, ::2, ::2]
+        k1_alone_on_passes(exact, label, D, half, True, True)
+        del D
+        exact.check(label, out, ref)
+        lt = torch.from_numpy(data.view(np.int32) if data.dtype == np.uint32
+                              else data).to(dev)
+        gt = torch.from_numpy(graph).to(dev)
+        native = lambda: vg.edtsq_voxel_graph_torch(lt, gt, aniso, True)  # noqa: E731
+        exact.check(f"{label}, device-native", native(), ref)
+        del ref
+        api_ms, api_all = cuda_ms(
+            lambda: et.edtsq(data, aniso, True, voxel_graph=graph,
+                             device=dev), reps=3)
+        dev_ms, dev_all = cuda_ms(native, reps=5)
+        print(f"{label}: API {api_ms:.2f} ms median of "
+              f"{[round(t, 2) for t in api_all]}; device tensors "
+              f"(edtsq_voxel_graph_torch) {dev_ms:.2f} ms median of "
+              f"{[round(t, 2) for t in dev_all]}; K1 launches {launches}; "
+              f"peak device memory {peak / 2**30:.2f} GiB")
+        profile(native, f"{label} (device tensors)")
+        profile(lambda: et.edtsq(data, aniso, True, voxel_graph=graph,
+                                 device=dev), f"{label} (API)")
+    exact.raise_if_failed("voxel graph")
+    print(f"vg: {S}^3 bit-exact to the host-doubled plain reference")
+
+
+def snemi_labels(rng):
+    """benchmarks/run.py's per-label cell: 512 x 512 x 100 uint16, labels
+    1..334 in 32 x 32 x 20 blocks (SNEMI3D-like)."""
+    nl = rng.integers(1, 335, size=(512 // 32, 512 // 32, 100 // 20))
+    return np.kron(nl, np.ones((32, 32, 20), np.int16)).astype(np.uint16)
+
+
+def phase_each(exact, dev):
+    """Per-label extraction of the SNEMI3D-like cell: edt on the card, then
+    the host RLE kit's each (native), torch_api.each_device and
+    extract_labels in chunks of 32 on the card; every label's image equal
+    across the three."""
+    import edt_tpu_torch as et
+    from edt_tpu_torch import api, rle, torch_api
+    from edt_tpu_torch.ops import minplus
+
+    aniso = (6.0, 6.0, 30.0)
+    lab = snemi_labels(np.random.default_rng(0))
+    minplus.launches = 0
+    mdt = et.edt(lab, aniso, True, device=dev)
+    launches = minplus.launches
+    if launches != 2:
+        raise AssertionError(f"each: edt launched K1 {launches} times")
+    if not np.isfinite(mdt).all():
+        raise AssertionError("each: edt is not finite")
+    edt_ms, _ = cuda_ms(lambda: et.edt(lab, aniso, True, device=dev), reps=3)
+    backend = rle.backend()
+    print(f"each: RLE backend {backend}")
+    if backend != "native":
+        raise AssertionError("each: the native RLE kit did not build")
+    t0 = time.perf_counter()
+    count = sum(1 for _ in et.each(lab, mdt, in_place=True))
+    host_s = time.perf_counter() - t0
+
+    lab_d = torch.from_numpy(api._as_device_labels(lab)).to(dev)
+    dt_d = torch.from_numpy(mdt).to(dev)
+    ids = [u for u in torch.unique(lab_d).tolist() if u != 0]
+    if len(ids) != count:
+        raise AssertionError(f"each: {count} host labels, {len(ids)} device")
+
+    def device_each():
+        last = None
+        for _, img in torch_api.each_device(lab_d, dt_d):
+            last = img
+        return last
+
+    def batched():
+        for c0 in range(0, len(ids), 32):
+            stack = torch_api.extract_labels(lab_d, dt_d, ids[c0:c0 + 32])
+        return stack
+
+    dev_ms, _ = cuda_ms(device_each, reps=2)
+    batch_ms, _ = cuda_ms(batched, reps=2)
+    host_it = iter(et.each(lab, mdt, in_place=True))
+    dev_it = torch_api.each_device(lab_d, dt_d)
+    for c0 in range(0, len(ids), 32):
+        stack = torch_api.extract_labels(lab_d, dt_d, ids[c0:c0 + 32])
+        for k, slab in zip(ids[c0:c0 + 32], stack):
+            hk, himg = next(host_it)
+            dk, dimg = next(dev_it)
+            if not hk == dk == k:
+                raise AssertionError(f"each: labels {hk}, {dk}, {k} differ")
+            himg = torch.tensor(himg, device=dev)  # a copy of the buffer
+            if not (torch.equal(himg, dimg) and torch.equal(himg, slab)):
+                exact.failures.append(f"each: label {k} differs")
+    exact.raise_if_failed("each")
+    print(f"each {'x'.join(map(str, lab.shape))} uint16, {count} labels, "
+          f"{aniso}: edt (API) "
+          f"{edt_ms:.2f} ms (K1 launches {launches}); host each (native "
+          f"RLE, in place) {host_s * 1e3:.1f} ms; each_device "
+          f"{dev_ms:.2f} ms; extract_labels in chunks of 32 {batch_ms:.2f} "
+          "ms; every label's image equal across the three")
+
+
+def phase_export(exact, dev):
+    """export_transform of the 512^3 forward, serialized and loaded, run on
+    bench.py's labels: bit-equal to compose.edtsq, K1 launched twice."""
+    from edt_tpu_torch.ops import compose, minplus
+    from edt_tpu_torch.utils import export as edt_export
+    from edt_tpu_torch.utils import profiling
+
+    shape = (FULL,) * 3
+    t0 = time.perf_counter()
+    data = edt_export.serialize_transform(shape, np.uint32, anisotropy=ANISO,
+                                          black_border=True, device=dev)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = edt_export.load(data)
+    load_s = time.perf_counter() - t0
+    labels = make_labels(np.random.default_rng(42), FULL)
+    lt = torch.from_numpy(labels.view(np.int32)).to(dev)
+    minplus.launches = 0
+    out = run(lt)
+    launches = minplus.launches
+    if launches != 2:
+        raise AssertionError(f"export: K1 launched {launches} times")
+    exact.check("exported 512^3 edtsq", out, compose.edtsq(lt, ANISO, True))
+    exact.raise_if_failed("export")
+    run_ms, run_all = cuda_ms(lambda: run(lt), reps=5)
+    ref_ms, ref_all = cuda_ms(lambda: compose.edtsq(lt, ANISO, True), reps=5)
+    tp = profiling.throughput(lambda x: compose.edtsq(x, ANISO, True), lt,
+                              iters=5)
+    print(f"export {FULL}^3 edtsq: export and serialize {export_s:.2f} s "
+          f"({len(data)} bytes), load {load_s:.2f} s, run {run_ms:.2f} ms "
+          f"median of {[round(t, 2) for t in run_all]} (K1 launches "
+          f"{launches}), bit-equal to compose.edtsq: {ref_ms:.2f} ms median "
+          f"of {[round(t, 2) for t in ref_all]}; profiling.throughput of "
+          f"compose.edtsq {tp['seconds_per_call'] * 1e3:.2f} ms a call, "
+          f"{tp['voxels_per_second'] / 1e6:.1f} Mvox/s")
+
+
 def main(only=()) -> int:
     """Every phase; with ``only`` (command-line words), the build and the
     phases whose names contain one of them, and no result lines."""
@@ -2165,7 +2391,10 @@ def main(only=()) -> int:
                lambda: phase_softmin_full(close5, close6, kernels, dev)),
               ("DistanceFieldNet trainer",
                lambda: phase_distance_net(close_train, close5, close6, dev)),
-              ("UNet3D trainer", lambda: phase_unet3d(close_train, dev))]
+              ("UNet3D trainer", lambda: phase_unet3d(close_train, dev)),
+              ("vg: voxel graph", lambda: phase_voxel_graph(exact, dev)),
+              ("each: per-label extraction", lambda: phase_each(exact, dev)),
+              ("export: 512^3 forward", lambda: phase_export(exact, dev))]
     if only:
         phases = [(name, fn) for name, fn in phases if name == "build"
                   or any(w.lower() in name.lower() for w in only)]

@@ -3,11 +3,15 @@ on PyTorch and CUDA (NVIDIA H100), a port of ``edt_tpu``.
 
 NumPy-facing API (drop-in for the reference package ``edt``):
   edt, edtsq, sdf, sdfsq, binary_edt, binary_edtsq,
-  edt1d, edt1dsq, edt2d, edt2dsq, edt3d, edt3dsq
+  edt1d, edt1dsq, edt2d, edt2dsq, edt3d, edt3dsq,
+  each, runs, draw, erase, transfer, reshape
 
-Each runs on the CUDA device unless ``device=`` names another (the tests
-pass ``device="cpu"``). The differentiable transforms are in
-``edt_tpu_torch.models``. The package imports torch and numpy, never jax.
+Each transform runs on the CUDA device unless ``device=`` names another
+(the tests pass ``device="cpu"``); the run-length kit (``each`` and the
+rest) is host code. The device-native API on torch tensors is
+``edt_tpu_torch.torch_api``; the differentiable transforms are in
+``edt_tpu_torch.models``; checkpointing, export and profiling in
+``edt_tpu_torch.utils``. The package imports torch and numpy, never jax.
 """
 
 from edt_tpu_torch.api import (
@@ -24,6 +28,7 @@ from edt_tpu_torch.api import (
     sdf,
     sdfsq,
 )
+from edt_tpu_torch.rle import draw, each, erase, reshape, runs, transfer
 
 __version__ = "0.2.0"
 
@@ -31,5 +36,6 @@ __all__ = [
     "edt", "edtsq", "sdf", "sdfsq",
     "edt1d", "edt1dsq", "edt2d", "edt2dsq", "edt3d", "edt3dsq",
     "binary_edt", "binary_edtsq",
+    "each", "runs", "draw", "erase", "transfer", "reshape",
     "__version__",
 ]

@@ -6,7 +6,9 @@ float32/64, bool), default anisotropy, and the ``parallel``/``order``
 keywords accepted for compatibility). The compute runs through
 ``ops.compose`` on a CUDA device unless ``device=`` names another; with no
 CUDA device and no ``device=`` every entry point raises. Axes longer than
-the device path takes fall back to the exact host implementation.
+the device path takes fall back to the exact host implementation, except
+under ``voxel_graph=``, which raises past K1's ceiling as the JAX package
+has no host path for it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from edt_tpu_torch.ops import compose, minplus
+from edt_tpu_torch.ops import voxel_graph as vg
 from edt_tpu_torch.utils import host_reference
 from edt_tpu_torch.utils.profiling import counters
 
@@ -141,21 +144,25 @@ def edtsq(
         raise TypeError(
             f"Multi-Label EDT library only supports up to 3 dimensions got {dims}."
         )
-    if voxel_graph is not None:
-        raise NotImplementedError(
-            "voxel_graph= is not ported yet (ROADMAP.md, Queue A item 7: "
-            "edt_tpu_torch/ops/voxel_graph.py)")
 
     anisotropy = _normalize_anisotropy(anisotropy, dims)
 
+    # The binary reduction comes before dispatch so the device and host
+    # paths see one mask, except under voxel_graph: its foreground test
+    # differs for floats (negative labels are background there), and it
+    # applies its own.
     take_binary = bool(data.dtype == np.bool_) or binary
-    if binary and data.dtype != np.bool_:
+    if binary and data.dtype != np.bool_ and voxel_graph is None:
         data = data != 0
 
     counters.transforms += 1
     counters.voxels += int(data.size)
 
-    if max(data.shape) > _device_max_axis(device):
+    if voxel_graph is not None:
+        counters.voxel_graph_calls += 1
+        result = vg.edtsq_voxel_graph(data, voxel_graph, anisotropy,
+                                      bool(black_border), arr_order, device)
+    elif max(data.shape) > _device_max_axis(device):
         counters.host_fallbacks += 1
         result = host_reference.edtsq_host(data, anisotropy, bool(black_border))
     else:

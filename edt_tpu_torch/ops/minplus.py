@@ -7,6 +7,12 @@ ctypes); ``minplus_walls_plain`` is its plain PyTorch version.
 
 ``minplus_walls`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors. ``launches`` counts the kernel launches.
+
+The same pair is registered as the ``torch.library`` custom op
+``edt_tpu_torch::minplus_walls`` (CUDA: the kernel's launch; CPU: the plain
+version; a fake implementation for tracing), so that ``torch.export``
+records K1 as one node. ``make_parabolic_fn()``, and so ``compose.edtsq``,
+calls K1 through the op.
 """
 
 from __future__ import annotations
@@ -100,11 +106,33 @@ def minplus_walls(f, ss, se, w2, black_border, masked):
     return out
 
 
-def make_parabolic_fn(minplus_fn=minplus_walls):
+@torch.library.custom_op(
+    "edt_tpu_torch::minplus_walls", mutates_args=(), device_types="cuda",
+    schema="(Tensor f, Tensor? ss, Tensor? se, float w2, bool black_border, "
+           "bool masked) -> Tensor")
+def minplus_walls_op(f, ss, se, w2, black_border, masked):
+    """K1 as a custom op: the kernel's launch on CUDA tensors."""
+    return minplus_walls(f, ss, se, w2, black_border, masked)
+
+
+@minplus_walls_op.register_kernel("cpu")
+def _minplus_walls_op_cpu(f, ss, se, w2, black_border, masked):
+    return minplus_walls_plain(f, ss, se, w2, black_border, masked)
+
+
+@minplus_walls_op.register_fake
+def _minplus_walls_op_fake(f, ss, se, w2, black_border, masked):
+    return torch.empty_like(f)
+
+
+def make_parabolic_fn(minplus_fn=None):
     """Whole parabolic pass, (f2d, labels2d, w2, black_border, binary) ->
     d2d: segment bounds, then ``minplus_fn`` with the walls fused. The
-    default is ``compose.edtsq``'s; ``make_parabolic_fn(minplus_walls_plain)``
-    is the same pass through the plain version on any device."""
+    default, ``compose.edtsq``'s, is K1 through its custom op;
+    ``make_parabolic_fn(minplus_walls_plain)`` is the same pass through the
+    plain version on any device."""
+    if minplus_fn is None:
+        minplus_fn = torch.ops.edt_tpu_torch.minplus_walls
 
     def fn(f2d, labels2d, w2, black_border, binary):
         if binary:

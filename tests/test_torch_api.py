@@ -19,6 +19,8 @@ import edt_tpu
 import edt_tpu_torch
 from edt_tpu_torch.utils.profiling import counters
 
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -105,9 +107,9 @@ def test_dims_errors():
     with pytest.raises(TypeError, match="only supported for 2D and 3D"):
         edt_tpu_torch.edtsq(np.ones(4, np.uint8), voxel_graph=np.ones(4),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(ValueError, match="must match data shape"):
         edt_tpu_torch.edtsq(np.ones((2, 2), np.uint8),
-                            voxel_graph=np.ones((2, 2), np.uint8),
+                            voxel_graph=np.ones((2, 3), np.uint8),
                             device="cpu")
 
 
@@ -130,7 +132,11 @@ def test_import_hygiene():
     code = ("import sys, edt_tpu_torch, edt_tpu_torch.ops.compose, "
             "edt_tpu_torch.ops.argmin, edt_tpu_torch.ops.grad, "
             "edt_tpu_torch.ops.softmin, edt_tpu_torch.models, "
-            "edt_tpu_torch.models.distance_net, edt_tpu_torch.models.unet3d; "
+            "edt_tpu_torch.models.distance_net, edt_tpu_torch.models.unet3d, "
+            "edt_tpu_torch.ops.voxel_graph, edt_tpu_torch.rle, "
+            "edt_tpu_torch.native.build, edt_tpu_torch.native.rle_native, "
+            "edt_tpu_torch.torch_api, edt_tpu_torch.utils.checkpoint, "
+            "edt_tpu_torch.utils.export, edt_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'edt_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

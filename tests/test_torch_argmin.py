@@ -28,6 +28,8 @@ from edt_tpu.ops import pallas_kernels as pk
 from edt_tpu_torch.ops import argmin, grad
 from edt_tpu_torch.ops.wall_sentinels import WALL_SENT16, WALL_SENT32
 
+torch.set_num_threads(1)
+
 N = 300
 
 

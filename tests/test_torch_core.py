@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from edt_tpu.ops import core as jcore
 from edt_tpu_torch.ops import core
 
+torch.set_num_threads(1)
+
 SHAPES = {1: (37,), 2: (9, 41), 3: (5, 6, 33)}
 
 

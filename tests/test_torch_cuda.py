@@ -14,6 +14,8 @@ import torch
 from edt_tpu_torch.models import soft
 from edt_tpu_torch.ops import argmin, core, grad, minplus, softmin
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():
@@ -67,6 +69,61 @@ def test_minplus_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         minplus.minplus_walls(f.t().contiguous().t(), None, None, 1.0, False,
                               False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "long-run", "inf-rows"])
+def test_minplus_custom_op_is_the_kernel(cuda, kind):
+    """K1's custom op launches the kernel on CUDA tensors, to the same bits
+    as the wrapper, once a call; compose.edtsq's default goes through it."""
+    from edt_tpu_torch.ops import compose
+
+    f, labels = _rows(kind, np.random.default_rng(1))
+    ft = torch.from_numpy(np.where(labels == 0, 0, f).astype(np.float32)).to(cuda)
+    ss, se = core.segment_bounds(torch.from_numpy(labels).to(cuda))
+    for masked in (False, True):
+        args = (ss, se) if masked else (None, None)
+        before = minplus.launches
+        got = torch.ops.edt_tpu_torch.minplus_walls(ft, *args, 36.0, True,
+                                                    masked)
+        assert minplus.launches == before + 1
+        assert torch.equal(got, minplus.minplus_walls(ft, *args, 36.0, True,
+                                                      masked))
+    lab = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 3, (20, 21, 22)).astype(np.int32)).to(cuda)
+    before = minplus.launches
+    got = compose.edtsq(lab, (1.0, 2.0, 3.0), True)
+    assert minplus.launches == before + 2
+    plain = minplus.make_parabolic_fn(minplus.minplus_walls_plain)
+    assert torch.equal(got, compose.edtsq(lab, (1.0, 2.0, 3.0), True,
+                                          parabolic_fn=plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bb", [False, True])
+def test_voxel_graph_on_the_card_matches_plain(cuda, bb):
+    """The voxel-graph transform on the card (K1 on the doubled volume)
+    against the same volume doubled on the host through the plain pass."""
+    import edt_tpu_torch
+    from edt_tpu_torch.ops import compose
+    from edt_tpu_torch.ops import voxel_graph as vg
+
+    rng = np.random.default_rng(3)
+    labels = rng.integers(0, 3, (30, 31, 32)).astype(np.uint32)
+    graph = np.full(labels.shape, 0b111111, np.uint8)
+    for bit in (0b1, 0b100, 0b10000):
+        graph[rng.random(labels.shape) < 0.1] &= np.uint8(~bit & 0xFF)
+    before = minplus.launches
+    got = edt_tpu_torch.edtsq(labels, (6.0, 6.0, 30.0), bb, voxel_graph=graph)
+    assert minplus.launches == before + 2
+    D = torch.from_numpy(vg._doubled_3d((labels != 0).astype(np.uint8),
+                                        graph, bb)).to(cuda)
+    plain = minplus.make_parabolic_fn(minplus.minplus_walls_plain)
+    ref = compose.edtsq(D, (3.0, 3.0, 15.0), bb, binary=True,
+                        parabolic_fn=plain)[::2, ::2, ::2].cpu().numpy()
+    fin = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), fin)
+    assert np.array_equal(got[fin], ref[fin])
 
 
 def _argmin_rows(n, rng):

@@ -6,10 +6,13 @@ import functools
 import types
 
 import pytest
+import torch
 
 import edt_tpu_torch
 import test_golden_1d
 import test_golden_2d3d
+
+torch.set_num_threads(1)
 
 PORT_CPU = types.SimpleNamespace(
     edt=functools.partial(edt_tpu_torch.edt, device="cpu"),

@@ -22,6 +22,8 @@ from edt_tpu.ops import core as jcore
 from edt_tpu.ops import pallas_kernels as pk
 from edt_tpu_torch.ops import _build, core, minplus
 
+torch.set_num_threads(1)
+
 PLAIN = minplus.make_parabolic_fn(minplus.minplus_walls_plain)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

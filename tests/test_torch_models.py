@@ -26,6 +26,8 @@ from edt_tpu.models import unet3d as jun
 from edt_tpu.ops import compose as jcompose
 from edt_tpu_torch.models import distance_net, unet3d
 
+torch.set_num_threads(1)
+
 SHAPE = (8, 8, 8)
 
 

@@ -25,6 +25,8 @@ import edt_tpu_torch
 from edt_tpu.models import soft as jsoft
 from edt_tpu_torch.models import soft
 
+torch.set_num_threads(1)
+
 SHAPE = (10, 12, 14)
 
 

@@ -25,6 +25,8 @@ import jax.numpy as jnp
 from edt_tpu.ops import pallas_kernels as pk
 from edt_tpu_torch.ops import softmin
 
+torch.set_num_threads(1)
+
 
 def _case(kind):
     """(f, w2, t) rows of the regimes K5 has, R <= 16, n <= 200.
