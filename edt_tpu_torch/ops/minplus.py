@@ -9,8 +9,8 @@ ctypes); ``minplus_walls_plain`` is its plain PyTorch version.
 version only for CPU tensors. ``launches`` counts the kernel launches.
 
 The same pair is registered as the ``torch.library`` custom op
-``edt_tpu_torch::minplus_walls`` (CUDA: the kernel's launch; CPU: the plain
-version; a fake implementation for tracing), so that ``torch.export``
+``edt_tpu_torch::minplus_walls`` (``minplus_walls`` on every device, with a
+fake implementation for tracing), so that ``torch.export``
 records K1 as one node. ``make_parabolic_fn()``, and so ``compose.edtsq``,
 calls K1 through the op.
 """
@@ -107,17 +107,13 @@ def minplus_walls(f, ss, se, w2, black_border, masked):
 
 
 @torch.library.custom_op(
-    "edt_tpu_torch::minplus_walls", mutates_args=(), device_types="cuda",
+    "edt_tpu_torch::minplus_walls", mutates_args=(),
     schema="(Tensor f, Tensor? ss, Tensor? se, float w2, bool black_border, "
            "bool masked) -> Tensor")
 def minplus_walls_op(f, ss, se, w2, black_border, masked):
-    """K1 as a custom op: the kernel's launch on CUDA tensors."""
+    """K1 as a custom op: ``minplus_walls``, which launches the kernel on
+    CUDA tensors and runs the plain version on CPU tensors."""
     return minplus_walls(f, ss, se, w2, black_border, masked)
-
-
-@minplus_walls_op.register_kernel("cpu")
-def _minplus_walls_op_cpu(f, ss, se, w2, black_border, masked):
-    return minplus_walls_plain(f, ss, se, w2, black_border, masked)
 
 
 @minplus_walls_op.register_fake

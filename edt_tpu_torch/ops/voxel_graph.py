@@ -118,18 +118,16 @@ def _check_ceiling(shape):
             "(ROADMAP B5, A6)")
 
 
-def _edtsq_doubled(fg, graph, half_anisotropy, black_border, parabolic_fn):
+def _edtsq_doubled(fg, graph, half_anisotropy, black_border):
     """Doubling, binary EDT at half pitch with the default axis order, and
     the even-site subsample, all on fg's device."""
     double = doubled_2d_torch if fg.dim() == 2 else doubled_3d_torch
     D = double(fg, graph, black_border)
-    d2 = compose.edtsq(D, half_anisotropy, black_border, binary=True,
-                       parabolic_fn=parabolic_fn)
+    d2 = compose.edtsq(D, half_anisotropy, black_border, binary=True)
     return d2[(slice(0, None, 2),) * fg.dim()]
 
 
-def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False,
-                            parabolic_fn=None):
+def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False):
     """Device-native 3-D voxel-graph squared EDT on torch tensors
     (counterpart of ``edtsq_voxel_graph_jnp``); runs on ``labels``'s device.
 
@@ -144,8 +142,7 @@ def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False,
     fg = labels > 0 if labels.is_floating_point() else labels != 0
     half = [float(np.float32(a) / np.float32(2.0))
             for a in np.asarray(anisotropy, np.float32).reshape(3)]
-    return _edtsq_doubled(fg, graph.to(torch.uint8), half, black_border,
-                          parabolic_fn)
+    return _edtsq_doubled(fg, graph.to(torch.uint8), half, black_border)
 
 
 def edtsq_voxel_graph(data, graph, anisotropy, black_border, arr_order,
@@ -190,7 +187,7 @@ def edtsq_voxel_graph(data, graph, anisotropy, black_border, arr_order,
     out = _edtsq_doubled(
         torch.from_numpy(np.ascontiguousarray(fg)).to(device),
         torch.from_numpy(np.ascontiguousarray(graph)).to(device),
-        half, bool(black_border), None)
+        half, bool(black_border))
     sub = out.contiguous().cpu().numpy()
 
     if arr_order == "F":

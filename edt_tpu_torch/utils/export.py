@@ -46,31 +46,19 @@ def export_fn(fn, *example_args):
     return program
 
 
-_UNSIGNED_AS_SIGNED = {np.dtype(np.uint16): torch.int16,
-                       np.dtype(np.uint32): torch.int32,
-                       np.dtype(np.uint64): torch.int64}
-
-
-def label_dtype(dtype) -> torch.dtype:
-    """The torch dtype an exported transform of NumPy ``dtype`` labels
-    takes: the same, except that uint16/32/64 are viewed as the signed type
-    of their width (``torch.from_numpy(a.view(np.int32))`` for uint32),
-    which keeps label equality and zeroness."""
-    dtype = np.dtype(dtype)
-    if dtype in _UNSIGNED_AS_SIGNED:
-        return _UNSIGNED_AS_SIGNED[dtype]
-    return torch.from_numpy(np.zeros(0, dtype)).dtype
-
-
 def export_transform(shape, dtype=np.uint32, anisotropy=None,
                      black_border=False, binary=False, sqrt=False,
                      device=None):
     """Exported EDT of a fixed-shape volume on ``device`` (default CUDA):
     labels -> (squared) distances, f32.
 
-    The program takes a tensor of ``label_dtype(dtype)``. binary: the
-    unmasked fast path (callers promise two-valued labels); sqrt: Euclidean
-    instead of squared distances."""
+    The program takes the tensor the NumPy API would pass for ``dtype``
+    labels: ``torch.from_numpy(api._as_device_labels(labels))`` (uint32 is
+    viewed as int32, uint16 and int16 widen to int32). 64-bit labels map by
+    their values there, to int32 ids or float32, so export those with the
+    dtype their mapped volume has. binary: the unmasked fast path (callers
+    promise two-valued labels); sqrt: Euclidean instead of squared
+    distances."""
     device = api._device(device)
     nd = len(shape)
     anis = [float(a) for a in np.asarray(
@@ -82,7 +70,8 @@ def export_transform(shape, dtype=np.uint32, anisotropy=None,
                           binary=bool(binary))
         return torch.sqrt(d) if sqrt else d
 
-    example = torch.zeros(tuple(shape), dtype=label_dtype(dtype),
+    mapped = api._as_device_labels(np.zeros(0, dtype))
+    example = torch.zeros(tuple(shape), dtype=torch.from_numpy(mapped).dtype,
                           device=device)
     return export_fn(fn, example)
 

@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 from edt_tpu.ops import compose as jcompose
+from edt_tpu_torch import api
 from edt_tpu_torch.models import distance_net
 from edt_tpu_torch.ops import compose, core, minplus
 from edt_tpu_torch.utils import checkpoint as ckpt
@@ -154,8 +155,12 @@ def test_export_records_k1_twice_and_maps_label_dtypes():
                                           anisotropy=(1, 2, 3), device="cpu")
     assert len(_op_nodes(program)) == 2
     assert program.example_inputs is None  # no volume saved with the graph
-    assert edt_export.label_dtype(np.uint16) == torch.int16
-    assert edt_export.label_dtype(np.float32) == torch.float32
+    # The program takes what the NumPy API passes for the same labels.
+    labels = np.random.default_rng(8).integers(
+        0, 40000, (6, 7, 8)).astype(np.uint16)
+    x = torch.from_numpy(api._as_device_labels(labels))
+    assert torch.equal(edt_export.load(program)(x),
+                       compose.edtsq(x, (1.0, 2.0, 3.0), False))
 
 
 def test_export_without_a_card_raises(monkeypatch):
