@@ -34,7 +34,18 @@ paths:
   kit's ``each`` (native, built with g++), ``torch_api.each_device`` and
   ``extract_labels`` give equal images; and the 512^3 forward exported
   with ``torch.export`` (K1 as a custom op), saved, loaded and bit-exact
-  to ``compose.edtsq``.
+  to ``compose.edtsq``;
+- slice 9 (phases ``long`` and ``export_grad``): rows past the kernels'
+  shared-memory ceilings, each long-row mode (K1, K2, K3, K5 at n = 58049
+  and 65536, K6 at 29025 and 40000) against its plain version and, forced
+  at its ceiling, against the shared-memory mode, then the main paths that
+  reach them: ``multilabel_edtsq`` fwd+bwd at bench flags on (16, 16,
+  65536) and ``soft_edtsq`` at t = 0.3 on (16, 16, 40000) and (4, 4,
+  65536) against ``kernels=PLAIN``, the voxel graph on (2, 8, 32768) and
+  (32768, 8, 2) against the host-doubled plain reference; and the
+  gradients of the 512^3 bench fwd+bwd (K2, K3, K4) and the 256^3
+  softmin cell (K5, K6) exported with ``export_fn`` (every kernel a
+  custom op), saved, loaded and bit-exact to the live gradient.
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -45,6 +56,7 @@ phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import io
 import json
 import statistics
 import subprocess
@@ -668,33 +680,13 @@ def k1_stress_rows(rng):
     return cases
 
 
-def minplus_walls_by_targets(f, ss, se, w2, black_border, masked,
-                             chunk=512):
-    """minplus_walls_plain's arithmetic taken ``chunk`` targets at a time:
-    the plain version on rows too long for its (rows, n, n) cost tensor."""
-    from edt_tpu_torch.ops import core
-
-    n = f.shape[1]
-    w2 = core.f32(w2)
-    j = torch.arange(n, dtype=torch.float32, device=f.device)
-    d = torch.empty_like(f)
-    for i0 in range(0, n, chunk):
-        diff = j[i0:i0 + chunk, None] - j[None, :]
-        d[:, i0:i0 + chunk] = (f[:, None, :] + (diff * diff) * w2).amin(-1)
-    if masked:
-        return core.border_envelopes_sq(d, ss, se, n, w2, black_border)
-    return core.binary_border_sq(d, n, w2) if black_border else d
-
-
 def check_k1(exact, name, f, lab, w2, dev):
     """K1 against its plain version, bit-exact, multi-label and binary,
     each with and without black_border; two launches give the same bits.
-    ``f`` is zeroed where ``lab`` is background, as a pass receives it.
-    Rows longer than 4096 take the plain arithmetic by target chunks."""
+    ``f`` is zeroed where ``lab`` is background, as a pass receives it."""
     from edt_tpu_torch.ops import core, minplus
 
-    plain = (minplus.minplus_walls_plain if f.shape[1] <= 4096
-             else minplus_walls_by_targets)
+    plain = minplus.minplus_walls_plain
 
     for binary in (False, True):
         lb = (lab != 0).astype(np.int32) if binary else lab
@@ -715,7 +707,8 @@ def check_k1(exact, name, f, lab, w2, dev):
 def phase_kernel_cases(exact, dev):
     """K1 against its plain version, bit-exact, over the regimes it has,
     the rows that stress its outward search, and rows at its ceiling; two
-    launches give the same bits; rows beyond the ceiling raise."""
+    launches give the same bits; rows one past the ceiling take its
+    long-row mode (the ``long`` phase holds that mode in full)."""
     from edt_tpu_torch.ops import core, minplus
 
     rng = np.random.default_rng(7)
@@ -765,24 +758,19 @@ def phase_kernel_cases(exact, dev):
 
     n_cases = sum(check_k1(exact, name, f, lab, w2, dev)
                   for name, f, lab, w2 in cases)
-    # the longest row, one source: d = w2 i^2 exactly
+    # the longest row of each mode, one source: d = w2 i^2 exactly
     n = minplus.MAX_AXIS
-    ft = torch.full((4, n), float("inf"), device=dev)
-    ft[:, 0] = 0.0
     w2 = core.f32(1.69)
-    idx = torch.arange(n, dtype=torch.float32, device=dev)
-    got = minplus.minplus_walls(ft, None, None, w2, False, False)
-    exact.check(f"n={n} one source", got, ((idx * idx) * w2).expand(4, n))
-    try:
-        minplus.minplus_walls(torch.zeros((1, n + 1), device=dev), None, None,
-                              1.0, False, False)
-    except ValueError:
-        pass
-    else:
-        exact.failures.append(f"K1: rows of {n + 1} did not raise")
+    for m in (n, n + 1):
+        ft = torch.full((4, m), float("inf"), device=dev)
+        ft[:, 0] = 0.0
+        idx = torch.arange(m, dtype=torch.float32, device=dev)
+        got = minplus.minplus_walls(ft, None, None, w2, False, False)
+        exact.check(f"n={m} one source", got, ((idx * idx) * w2).expand(4, m))
     exact.raise_if_failed("kernel vs plain")
-    print(f"kernel vs plain: {n_cases + 1} cases bit-exact up to n={n}, each "
-          f"launched twice to the same bits; rows of {n + 1} raise")
+    print(f"kernel vs plain: {n_cases + 2} cases bit-exact up to n={n + 1} "
+          f"(n={n + 1} in the long-row mode), each of the first {n_cases} "
+          "launched twice to the same bits")
 
 
 def phase_slice_small(exact, dev):
@@ -1042,20 +1030,24 @@ def check_k3_cases(close3, dev, rng):
     return n_cases
 
 
-def check_ceilings(dev):
-    """K2 and K3 raise ValueError on rows one longer than their ceilings."""
+def check_past_ceilings(exact, close3, dev):
+    """K2 and K3 on rows one longer than their ceilings, in their long-row
+    modes: one source a row, d = w2 k^2 and its offsets exactly; one link
+    target, df = the row's sum (cotangents in multiples of 1/16: exact)."""
     from edt_tpu_torch.ops import argmin, grad
 
-    for name, fn, n in (
-            ("K2", lambda x: argmin.minplus_argmin(x, 1.0), argmin.MAX_AXIS + 1),
-            ("K3", lambda x: grad.minplus_grad(
-                x, offsets=torch.zeros_like(x, dtype=torch.int32)),
-             grad.MAX_AXIS + 1)):
-        try:
-            fn(torch.zeros((1, n), device=dev))
-        except ValueError:
-            continue
-        raise AssertionError(f"{name}: rows of {n} did not raise")
+    n = argmin.MAX_AXIS + 1
+    f = torch.full((2, n), float("inf"), device=dev)
+    f[:, 5] = 0.0
+    k = (torch.arange(n, device=dev) - 5).to(torch.float32)
+    d, o = argmin.minplus_argmin(f, 1.69, None, True)
+    exact.check(f"K2 n={n} one source d", d, (1.69 * (k * k)).expand(2, n))
+    exact.check(f"K2 n={n} one source offsets", o,
+                (5 - torch.arange(n, device=dev)).to(o.dtype).expand(2, n))
+    g = torch.randint(-64, 64, (2, n), device=dev) / 16.0
+    ref = torch.zeros_like(g)
+    ref[:, 5] = g.sum(dim=1)
+    close3.check(f"K3 n={n} one target", grad.minplus_grad(g, offsets=o), ref)
 
 
 def k4_lanes(n):
@@ -1260,7 +1252,7 @@ def phase_grad_kernel_cases(exact, close3, close4, dev):
         n_k2 += 1
     n_k3 = check_k3_cases(close3, dev, rng_new)
     n_k4 = check_k4_cases(close4, dev, np.random.default_rng(29))
-    check_ceilings(dev)
+    check_past_ceilings(exact, close3, dev)
     exact.raise_if_failed("K2 vs plain")
     close3.raise_if_failed("K3 vs plain")
     close4.raise_if_failed("K4 vs plain")
@@ -1270,8 +1262,8 @@ def phase_grad_kernel_cases(exact, close3, close4, dev):
           f"{n_k4} stress cases up to n=3000 (past its register cap), each "
           f"launched twice to the same bits; within "
           f"rtol={close3.rtol}, atol={close3.atol}: max abs err K3 "
-          f"{close3.max_abs_err}, K4 {close4.max_abs_err}; both raise beyond "
-          f"their ceilings")
+          f"{close3.max_abs_err}, K4 {close4.max_abs_err}; K2 and K3 exact "
+          f"on one-source rows of {n + 1} in their long-row modes")
 
 
 def fwd_bwd(labels, occ, binary_occupancy, barrier, kernels=None):
@@ -1571,22 +1563,6 @@ def distance_net_rows(rng, rows, n, scale):
     return (scale / (1 + np.exp(-z))).astype(np.float32)
 
 
-def softmin_by_targets(f, w2, t, chunk=256):
-    """softmin_plain's arithmetic taken ``chunk`` targets at a time: the
-    plain version on rows too long for its (rows, n, n) cost tensor."""
-    from edt_tpu_torch.ops import core
-
-    n = f.shape[1]
-    w2, t = core.f32(w2), core.f32(t)
-    j = torch.arange(n, dtype=torch.float32, device=f.device)
-    d = torch.empty_like(f)
-    for i0 in range(0, n, chunk):
-        diff = j[i0:i0 + chunk, None] - j[None, :]
-        cost = f[:, None, :] + (diff * diff) * w2
-        d[:, i0:i0 + chunk] = -t * torch.logsumexp(-cost / t, dim=-1)
-    return d
-
-
 def k5_stress_rows(rng):
     """(name, f, w2, t) rows that stress K5's walks and its cut: t in
     {0.01, 0.3, 1}, w2 in {0.7, 900}, heights near 3e7 (ulp 2: neighbouring
@@ -1684,31 +1660,38 @@ def phase_softmin_kernel_cases(close5, close6, dev):
         ft = torch.from_numpy(f).to(dev)
         check_k5(close5, name, ft, w2, t, softmin.softmin_plain(ft, w2, t))
         n_stress += 1
-    # random rows at the ceiling, against the plain arithmetic by targets
+    # random rows at the ceiling
     n = softmin.MAX_AXIS
     ft = torch.from_numpy((rng.random((2, n)) * 900).astype(np.float32)).to(dev)
     ft[1, ::3] = float("inf")
     for w2, t in ((36.0, 0.3), (0.7, 0.01)):
         check_k5(close5, f"n={n} w2={w2} t={t}", ft, w2, t,
-                 softmin_by_targets(ft, w2, t))
+                 softmin.softmin_plain(ft, w2, t))
         n_stress += 1
-    for fn, n in ((lambda x: softmin.softmin(x, 1.0, 0.3),
-                   softmin.MAX_AXIS + 1),
-                  (lambda x: softmin.softmin_grad(x, x, x, 1.0, 0.3),
-                   softmin.GRAD_MAX_AXIS + 1)):
-        try:
-            fn(torch.zeros((1, n), device=dev))
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"rows of {n} did not raise")
+    # one past each ceiling, in the long-row modes: K5 against the plain
+    # version, K6 on one source a row
+    n = softmin.MAX_AXIS + 1
+    ft = torch.from_numpy((rng.random((2, n)) * 900).astype(np.float32)).to(dev)
+    check_k5(close5, f"n={n} (long rows)", ft, 36.0, 0.3,
+             softmin.softmin_plain(ft, 36.0, 0.3))
+    n = softmin.GRAD_MAX_AXIS + 1
+    ft = torch.full((2, n), float("inf"), device=dev)
+    ft[:, 40] = 0.0
+    k = (torch.arange(n, device=dev) - 40).to(torch.float32)
+    g = torch.from_numpy(rng.uniform(-1, 1, (2, n)).astype(np.float32)).to(dev)
+    df, e = softmin.softmin_grad(ft, softmin.softmin(ft, 36.0, 0.3), g, 36.0, 0.3)
+    ref_df = torch.zeros_like(g)
+    ref_df[:, 40] = g.sum(dim=1)
+    close6.check(f"K6 df one source n={n} (long rows)", df, ref_df)
+    close6.check(f"K6 e one source n={n} (long rows)", e, (k * k).expand(2, n))
     close5.raise_if_failed("K5 vs plain")
     close6.raise_if_failed("K6 vs plain")
     print(f"K5-K6 vs plain: {n_cases} cases and 3 one-source rows up to "
           f"n={softmin.MAX_AXIS} (K6 up to its ceiling n="
           f"{softmin.GRAD_MAX_AXIS}), and {n_stress} K5 stress cases up to "
           f"n={softmin.MAX_AXIS}; every case launched twice to the same "
-          f"bits; both raise beyond their ceilings; K5 within rtol={close5.rtol}, "
+          f"bits; both exact or within tolerance one past their ceilings, "
+          f"in their long-row modes; K5 within rtol={close5.rtol}, "
           f"atol={close5.atol}: max abs err {close5.max_abs_err}; K6 df "
           f"within rtol={close6.rtol}, atol={close6.atol_rel} max|df|, "
           f"sum(g e) within rtol=1e-3: max abs err {close6.max_abs_err}")
@@ -2338,6 +2321,444 @@ def phase_export(exact, dev):
           f"{tp['voxels_per_second'] / 1e6:.1f} Mvox/s")
 
 
+# ---------------- slice 9: rows past the shared-memory ceilings (B5) and
+# the exported gradient (A5b)
+
+LONG_N = (58049, 65536)  # K1, K2, K3, K5: one past their ceiling, and 2^16
+LONG_N6 = (29025, 40000)  # K6: one past its ceiling, and the soft volume's
+LONG_ROWS = 8
+LONG_VOLUME = (16, 16, 65536)  # multilabel_edtsq, bench flags
+LONG_SOFT = ((16, 16, 40000), (4, 4, 65536))  # soft_edtsq at t = SOFT_T
+LONG_VG = ((2, 8, 32768), (32768, 8, 2))  # doubled axis 65536
+SRC = "edt_tpu_torch/csrc/"
+REP = "edt_tpu/ops/pallas_kernels.py:"
+
+
+def long_launches():
+    """Launches in the long-row modes: K1, K2, K3, K5, K6."""
+    from edt_tpu_torch.ops import argmin, grad, minplus, softmin
+
+    return {"K1": minplus.long_launches, "K2": argmin.long_launches,
+            "K3": grad.minplus_grad_long_launches,
+            "K5": softmin.long_launches, "K6": softmin.grad_long_launches}
+
+
+def zero_long_launches():
+    from edt_tpu_torch.ops import argmin, grad, minplus, softmin
+
+    minplus.long_launches = argmin.long_launches = 0
+    grad.minplus_grad_long_launches = 0
+    softmin.long_launches = softmin.grad_long_launches = 0
+
+
+def long_label_rows(rng, rows, n, run=32):
+    """(f, labels): heights 0..900 over runs of labels 0..5, ``run`` voxels
+    each (make_labels' block width at 512^3), f zeroed at background as a
+    pass receives it."""
+    lab = np.repeat(rng.integers(0, 6, size=(rows, n // run + 1)), run,
+                    axis=1)[:, :n].astype(np.int32)
+    f = (rng.random((rows, n)) * 900).astype(np.float32)
+    return np.where(lab == 0, np.float32(0), f), lab
+
+
+def long_soft_rows(rng, rows, n):
+    """Heights 0..900 with 30 % zeros (sources)."""
+    f = (rng.random((rows, n)) * 900).astype(np.float32)
+    f[rng.random((rows, n)) < 0.3] = 0.0
+    return f
+
+
+def soft_needed(f, w2, t, d=None):
+    """Pairs inside each target's cut over ``minplus.plain_chunks`` (rows of
+    any length): K5's, cost - dmin_i <= 30 t with dmin the chunk's hard
+    min; K6's, d_i - cost >= -30 t, when ``d`` is given."""
+    from edt_tpu_torch.ops import minplus
+
+    R, n = f.shape
+    cut = soft_cut(t)
+    needed = 0
+    for r0, r1, i0, i1 in minplus.plain_chunks(R, n):
+        cost = f[r0:r1, None, :] + minplus.quad_rows(i0, i1, n, w2, f.device)
+        if d is None:
+            needed += int(((cost - cost.amin(dim=-1, keepdim=True)) <= cut)
+                          .sum())
+        else:
+            needed += int(((d[r0:r1, i0:i1, None] - cost) >= -cut).sum())
+        del cost
+    return needed
+
+
+def long_kernel_cases(exact, close3, close5, close6, dev):
+    """Each long-row mode against its plain version past its ceiling (K1
+    and K2 bit-exact, K3, K5 and K6 within the kernel phases' tolerances),
+    each mode forced at its ceiling against the shared-memory mode on the
+    same rows, and the times a voxel of both. Returns the JSON rows'
+    numbers at n = 65536 (K6: 40000)."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import argmin, core, grad, minplus, softmin
+
+    rng = np.random.default_rng(31)
+    R, w2, t = LONG_ROWS, 36.0, SOFT_T
+    exps_per_s = sfu_exps_per_s()
+    rows = {}
+    for n in (minplus.MAX_AXIS,) + LONG_N:
+        f, lab = long_label_rows(rng, R, n)
+        if n > minplus.MAX_AXIS:  # K1, both layouts, both borders
+            check_k1(exact, f"K1 long rows n={n}", f, lab, w2, dev)
+        ft = torch.from_numpy(f).to(dev)
+        lt = torch.from_numpy(lab).to(dev)
+        ss, se = core.segment_bounds(lt)
+        cnt = soft._wall_counts(lt, 1, True).contiguous()
+        if cnt.dtype != torch.int32:  # past I16_MAX_AXIS, counts and
+            raise AssertionError(f"n={n}: wall counts {cnt.dtype}")  # links int32
+        g = torch.from_numpy(rng.uniform(-1, 1, (R, n)).astype(np.float32)).to(dev)
+        fs = torch.from_numpy(long_soft_rows(rng, R, n)).to(dev)
+        k1 = lambda lr: minplus.minplus_walls(  # noqa: E731
+            ft, ss, se, w2, True, True, _long_rows=lr)
+        k2 = lambda lr: argmin.minplus_argmin(  # noqa: E731
+            ft, w2, cnt, True, _long_rows=lr)
+        d2, o2 = k2(True)
+        if o2.dtype != torch.int32:
+            raise AssertionError(f"K2 n={n}: offsets {o2.dtype}")
+        sent = torch.iinfo(o2.dtype).min
+        k3 = lambda lr: grad.minplus_grad(  # noqa: E731
+            g, offsets=o2, off_sent=sent, _long_rows=lr)
+        k5 = lambda lr: softmin.softmin(fs, w2, t, _long_rows=lr)  # noqa: E731
+        if n == minplus.MAX_AXIS:  # the two modes on the same rows
+            for name, fn, chk in (("K1", k1, exact), ("K2", k2, exact),
+                                  ("K3", k3, exact), ("K5", k5, close5)):
+                outs = zip(*(o if isinstance(o, tuple) else (o,)
+                             for o in (fn(True), fn(False))))
+                for a, b in outs:
+                    chk.check(f"{name} n={n} long mode vs shared memory", a, b)
+                short_ms, _ = cuda_ms(lambda: fn(False), reps=5)
+                long_ms, _ = cuda_ms(lambda: fn(True), reps=5)
+                vox = R * n
+                print(f"{name} n={n} {(R, n)}: shared-memory mode {short_ms:.3f} "
+                      f"ms ({short_ms / vox * 1e6:.3f} ns a voxel), long-row "
+                      f"mode {long_ms:.3f} ms ({long_ms / vox * 1e6:.3f} ns a "
+                      "voxel)")
+            continue
+        rd, ro = argmin.minplus_argmin_plain(ft, w2, cnt, True)
+        exact.check(f"K2 long rows n={n} d", d2, rd)
+        exact.check(f"K2 long rows n={n} offsets", o2, ro)
+        del rd, ro
+        close3.check(f"K3 long rows n={n}", k3(True),
+                     grad.minplus_grad_plain(g, offsets=o2, off_sent=sent))
+        check_k5(close5, f"long rows n={n}", fs, w2, t,
+                 softmin.softmin_plain(fs, w2, t))
+        if n != LONG_N[-1]:
+            continue
+        # times and bounds at (LONG_ROWS, 65536)
+        vox = R * n
+        walls = argmin.walls_from_counts(cnt, w2)
+        _, k1_cands, _, _ = k1_search(ft, ss, se, w2, True, True)
+        k2_cands, _, _ = k2_search_work(ft, walls, w2)
+        live = o2 != sent
+        idx = torch.arange(n, device=dev)
+        links = torch.where(live, idx + o2.to(torch.int64), idx)
+        gm = torch.where(live, g, 0.0)
+        needed5 = soft_needed(fs, w2, t)
+        for name, fn, plain, bnd, lib in (
+                ("K1", k1, lambda: minplus.minplus_walls_plain(
+                    ft, ss, se, w2, True, True),
+                 bound_ms(16 * vox, 4 * k1_cands), None),
+                ("K2", k2, lambda: argmin.minplus_argmin_plain(ft, w2, cnt, True),
+                 bound_ms(16 * vox, 4 * k2_cands), None),
+                ("K3", k3, lambda: grad.minplus_grad_plain(
+                    g, offsets=o2, off_sent=sent),
+                 bound_ms(12 * vox, int(live.sum())),
+                 lambda: torch.zeros_like(g).scatter_add_(1, links, gm)),
+                ("K5", k5, lambda: softmin.softmin_plain(fs, w2, t),
+                 bound_exp_ms(8 * vox, 6 * needed5, needed5, exps_per_s)[:2],
+                 None)):
+            ms, _ = cuda_ms(lambda: fn(True), reps=5)
+            pms, _ = cuda_ms(plain, reps=1, warmup=0)
+            lms = cuda_ms(lib, reps=5)[0] if lib else None
+            rows[name] = (ms, pms, bnd[0], bnd[1], lib and lms)
+            print(f"{name} long rows {(R, n)}: {ms:.3f} ms ({ms / vox * 1e6:.3f} "
+                  f"ns a voxel), plain {pms:.1f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]})" + (f", library scatter_add_ {lms:.3f} ms"
+                                   if lib else ""))
+        del walls, links, gm
+    # K6: forced at its ceiling, then past it
+    for n in (softmin.GRAD_MAX_AXIS,) + LONG_N6:
+        fs = torch.from_numpy(long_soft_rows(rng, R, n)).to(dev)
+        d = softmin.softmin(fs, w2, t)
+        g = torch.from_numpy(rng.uniform(-1, 1, (R, n)).astype(np.float32)).to(dev)
+        k6 = lambda lr: softmin.softmin_grad(fs, d, g, w2, t, _long_rows=lr)  # noqa: E731
+        vox = R * n
+        if n == softmin.GRAD_MAX_AXIS:
+            for a, b in zip(k6(True), k6(False)):
+                exact.check(f"K6 n={n} long mode vs shared memory", a, b)
+            short_ms, _ = cuda_ms(lambda: k6(False), reps=5)
+            long_ms, _ = cuda_ms(lambda: k6(True), reps=5)
+            print(f"K6 n={n} {(R, n)}: shared-memory mode {short_ms:.3f} ms "
+                  f"({short_ms / vox * 1e6:.3f} ns a voxel), long-row mode "
+                  f"{long_ms:.3f} ms ({long_ms / vox * 1e6:.3f} ns a voxel)")
+            continue
+        check_k6(close6, f"long rows n={n}", fs, d, g, w2, t)
+        if n != LONG_N6[-1]:
+            continue
+        needed6 = soft_needed(fs, w2, t, d)
+        bms, by, _ = bound_exp_ms(20 * vox, 7 * needed6, needed6, exps_per_s)
+        ms, _ = cuda_ms(lambda: k6(True), reps=5)
+        pms, _ = cuda_ms(lambda: softmin.softmin_grad_plain(fs, d, g, w2, t),
+                         reps=1, warmup=0)
+        rows["K6"] = (ms, pms, bms, by, None)
+        print(f"K6 long rows {(R, n)}: {ms:.3f} ms ({ms / vox * 1e6:.3f} ns a "
+              f"voxel), plain {pms:.1f} ms, bound {bms:.4f} ms ({by})")
+    return rows
+
+
+def long_multilabel(exact, close, dev):
+    """multilabel_edtsq fwd+bwd at bench flags on LONG_VOLUME (K2 and K3
+    in their long-row modes along the long axis) against kernels=PLAIN:
+    forward bit-exact, gradient within rtol=1e-5. Returns its long
+    launches."""
+    from edt_tpu_torch.models import soft
+
+    rng = np.random.default_rng(37)
+    s0, s1, s2 = LONG_VOLUME
+    labels = np.kron(rng.integers(0, 6, size=(s0 // 4, s1 // 4, s2 // 32)),
+                     np.ones((4, 4, 32), np.uint8)).astype(np.uint32)
+    lt = torch.from_numpy(labels.view(np.int32)).to(dev)
+    occ = (lt != 0).float()
+    barrier = float(np.sum((np.asarray(ANISO) * np.asarray(LONG_VOLUME)) ** 2))
+    zero_grad_launches()
+    zero_long_launches()
+    out, g = fwd_bwd(lt, occ, True, barrier)
+    counts, longs = grad_launches(), long_launches()
+    if counts != (2, 2, 1) or (longs["K2"], longs["K3"]) != (1, 1):
+        raise AssertionError(f"{LONG_VOLUME} fwd+bwd: launches (K2, K3, K4) "
+                             f"{counts}, long rows {longs}")
+    rout, rg = fwd_bwd(lt, occ, True, barrier, kernels=soft.PLAIN)
+    exact.check(f"{LONG_VOLUME} multilabel_edtsq forward vs PLAIN", out, rout)
+    close.check(f"{LONG_VOLUME} multilabel_edtsq gradient vs PLAIN", g, rg)
+    del rout, rg
+    ms, all_ms = cuda_ms(lambda: fwd_bwd(lt, occ, True, barrier), reps=3)
+    pms, _ = cuda_ms(lambda: fwd_bwd(lt, occ, True, barrier, soft.PLAIN),
+                     reps=1, warmup=0)
+    vox = labels.size
+    print(f"{LONG_VOLUME} multilabel_edtsq fwd+bwd (bench flags): {ms:.2f} ms "
+          f"median of {[round(x, 2) for x in all_ms]} ({ms / vox * 1e6:.3f} ns "
+          f"a voxel), kernels=PLAIN {pms:.1f} ms; launches (K2, K3, K4) "
+          f"{counts}, long rows K2 {longs['K2']}, K3 {longs['K3']}")
+    profile(lambda: fwd_bwd(lt, occ, True, barrier),
+            f"{LONG_VOLUME} multilabel_edtsq fwd+bwd (bench flags)", top=10,
+            by_op=True)
+    return longs
+
+
+def long_soft(close_f, close_g, dev):
+    """soft_edtsq fwd+bwd at t = SOFT_T on LONG_SOFT (the softmin cell's
+    flags; K6 in its long-row mode on both, K5 on the second) against
+    kernels=PLAIN within the softmin slice's tolerances. Returns the
+    long launches."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import softmin
+
+    total = dict.fromkeys(("K5", "K6"), 0)
+    for shape in LONG_SOFT:
+        rng = np.random.default_rng(41)
+        occ = torch.from_numpy((rng.random(shape) > 0.5)
+                               .astype(np.float32)).to(dev)
+        barrier = float(3 * SOFT_FULL ** 2)
+        fn = lambda o, k: soft.soft_edtsq(  # noqa: E731
+            o, (1.0, 1.0, 1.0), True, barrier, SOFT_T, kernels=k)
+        zero_soft_launches()
+        zero_long_launches()
+        out, g = value_and_grad(fn, occ, soft.KERNELS)
+        counts, longs = soft_launches(), long_launches()
+        want = (int(shape[2] > softmin.MAX_AXIS),
+                int(shape[2] > softmin.GRAD_MAX_AXIS))
+        if counts != (3, 3) or (longs["K5"], longs["K6"]) != want:
+            raise AssertionError(f"{shape} soft_edtsq: launches (K5, K6) "
+                                 f"{counts}, long rows {longs}")
+        total["K5"] += longs["K5"]
+        total["K6"] += longs["K6"]
+        rout, rg = value_and_grad(fn, occ, soft.PLAIN)
+        close_f.check(f"{shape} soft_edtsq t={SOFT_T} forward vs PLAIN", out,
+                      rout)
+        close_g.check(f"{shape} soft_edtsq t={SOFT_T} gradient vs PLAIN", g,
+                      rg)
+        del rout, rg
+        ms, all_ms = cuda_ms(lambda: value_and_grad(fn, occ, soft.KERNELS),
+                             reps=3)
+        vox = occ.numel()
+        print(f"{shape} soft_edtsq t={SOFT_T} fwd+bwd: {ms:.2f} ms median of "
+              f"{[round(x, 2) for x in all_ms]} ({ms / vox * 1e6:.3f} ns a "
+              f"voxel); launches (K5, K6) {counts}, long rows K5 "
+              f"{longs['K5']}, K6 {longs['K6']}")
+        profile(lambda: value_and_grad(fn, occ, soft.KERNELS),
+                f"{shape} soft_edtsq t={SOFT_T} fwd+bwd", by_op=True)
+    return total
+
+
+def long_voxel_graph(exact, dev):
+    """The voxel-graph transform on LONG_VG through the NumPy API,
+    bit-exact to the volume doubled on the host, run through the plain
+    parabolic pass on the card and subsampled, as the ``vg`` phase holds
+    it. On the second shape the doubled long axis goes through K1's
+    long-row mode (the first axis of the default order takes the closed
+    form). Returns K1's long launches."""
+    import edt_tpu_torch as et
+    from edt_tpu_torch.ops import compose, minplus
+    from edt_tpu_torch.ops import voxel_graph as vg
+
+    plain = minplus.make_parabolic_fn(minplus.minplus_walls_plain)
+    rng = np.random.default_rng(43)
+    total = 0
+    for shape in LONG_VG:
+        data = (rng.random(shape) < 0.9).astype(np.uint8)
+        graph = vg_graph(rng, shape)
+        minplus.launches = 0
+        zero_long_launches()
+        out = et.edtsq(data, ANISO, True, voxel_graph=graph, device=dev)
+        launches, longs = minplus.launches, long_launches()
+        if launches != 2 or longs["K1"] != int(2 * shape[0] > minplus.MAX_AXIS):
+            raise AssertionError(f"{shape} voxel graph: K1 launches "
+                                 f"{launches}, long rows {longs['K1']}")
+        total += longs["K1"]
+        D = torch.from_numpy(vg._doubled_3d(data, graph, True)).to(dev)
+        ref = compose.edtsq(D, [a / 2 for a in ANISO], True, binary=True,
+                            parabolic_fn=plain)[::2, ::2, ::2]
+        del D
+        exact.check(f"{shape} voxel graph vs host-doubled plain", out, ref)
+        ms, _ = cuda_ms(lambda: et.edtsq(data, ANISO, True, voxel_graph=graph,
+                                         device=dev), reps=3)
+        print(f"{shape} voxel graph (API, doubled {tuple(2 * s for s in shape)}"
+              f"): {ms:.2f} ms; K1 launches {launches}, long rows "
+              f"{longs['K1']}")
+        profile(lambda: et.edtsq(data, ANISO, True, voxel_graph=graph,
+                                 device=dev), f"{shape} voxel graph (API)",
+                by_op=True)
+    return total
+
+
+def phase_long(exact, close, close3, close5, close6, soft_f, soft_g, kernels,
+               dev):
+    """Rows past the shared-memory ceilings: each long-row mode against
+    its plain version and against the shared-memory mode, then the main
+    paths that reach them (multilabel_edtsq on a 65536-voxel axis,
+    soft_edtsq at t > 0 on axes of 40000 and 65536, the voxel graph with a
+    doubled axis of 65536), each counted and held to its plain path."""
+    rows = long_kernel_cases(exact, close3, close5, close6, dev)
+    longs = long_multilabel(exact, close, dev)
+    longs.update(long_soft(soft_f, soft_g, dev))
+    longs["K1"] = long_voxel_graph(exact, dev)
+    for chk, phase in ((exact, "long: K1, K2, forwards"), (close3, "long: K3"),
+                       (close, "long: gradients"), (close5, "long: K5"),
+                       (close6, "long: K6"), (soft_f, "long: soft forward"),
+                       (soft_g, "long: soft gradient")):
+        chk.raise_if_failed(phase)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"long: every long-row mode exact or within tolerance, on {smi}; "
+          f"long-row launches on the main paths {longs}")
+    for k, name, file, line in (
+            ("K1", "minplus_walls", "minplus.cu", 84),
+            ("K2", "minplus_argmin", "argmin.cu", 771),
+            ("K3", "minplus_grad", "grad.cu", 1363),
+            ("K5", "softmin", "softmin.cu", 1796),
+            ("K6", "softmin_grad", "softmin.cu", 2307)):
+        ms, pms, bms, by, lib = rows[k]
+        err = {"K1": exact, "K2": exact, "K3": close3, "K5": close5,
+               "K6": close6}[k].max_abs_err
+        kernels.append({
+            "name": f"{name} (long rows)", "route": "cuda",
+            "source": SRC + file, "replaces": REP + str(line),
+            "launches": longs[k], "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib})
+
+
+def grad_program(fn, *args):
+    """export_fn of the gradient of sum(fn(*args)) w.r.t. the last
+    argument, saved to bytes and loaded: (loaded callable, program, the
+    live gradient function, export s, bytes)."""
+    from edt_tpu_torch.utils import export as edt_export
+
+    def gfn(*a):
+        *rest, x = a
+        x = x.detach().requires_grad_()
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*rest, x).sum(), x)[0]
+
+    t0 = time.perf_counter()
+    program = edt_export.export_fn(gfn, *args)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    data = buf.getvalue()
+    export_s = time.perf_counter() - t0
+    return edt_export.load(data), program, gfn, export_s, len(data)
+
+
+def op_nodes(program):
+    """{op: nodes} of the kernels' custom ops in an exported graph."""
+    counts = {}
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("edt_tpu_torch."):
+            key = name.split(".")[1]
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def phase_export_grad(exact, dev):
+    """The gradient of multilabel_edtsq at bench.py's 512^3 volume and
+    flags (K2, K3, K4) and of soft_edtsq at t = SOFT_T on the 256^3
+    softmin cell (K5, K6), each exported with export_fn, saved, loaded and
+    run on the card: bit-exact to the live gradient, the kernels' ops
+    nodes of the graph, their launches counted in the loaded run, timed
+    beside the live call."""
+    from edt_tpu_torch.models import soft
+
+    labels = make_labels(np.random.default_rng(42), FULL)
+    lt = torch.from_numpy(labels.view(np.int32)).to(dev)
+    occ = (lt != 0).float()
+    barrier = float(np.sum((np.asarray(ANISO) * FULL) ** 2))
+    S = SOFT_FULL
+    socc = torch.from_numpy((np.random.default_rng(42).random((S,) * 3) > 0.5)
+                            .astype(np.float32)).to(dev)
+    cases = (
+        (f"{FULL}^3 multilabel_edtsq (bench flags)",
+         lambda lab, o: soft.multilabel_edtsq(lab, o, ANISO, True,
+                                              barrier=barrier,
+                                              binary_occupancy=True),
+         (lt, occ), {"minplus_argmin": 2, "minplus_grad": 2,
+                     "binary_grad_scan": 1},
+         zero_grad_launches, grad_launches, (2, 2, 1)),
+        (f"{S}^3 soft_edtsq t={SOFT_T}",
+         lambda o: soft.soft_edtsq(o, (1.0, 1.0, 1.0), True, float(3 * S ** 2),
+                                   SOFT_T),
+         (socc,), {"softmin": 3, "softmin_grad": 3},
+         zero_soft_launches, soft_launches, (3, 3)))
+    for label, fn, args, nodes, zero, count, want in cases:
+        run, program, gfn, export_s, nbytes = grad_program(fn, *args)
+        if op_nodes(program) != nodes:
+            raise AssertionError(f"export_grad {label}: op nodes "
+                                 f"{op_nodes(program)}, expected {nodes}")
+        zero()
+        got = run(*args)
+        launches = count()
+        if launches != want:
+            raise AssertionError(f"export_grad {label}: the loaded program "
+                                 f"launched {launches}, expected {want}")
+        exact.check(f"export_grad {label} vs the live gradient", got,
+                    gfn(*args))
+        run_ms, run_all = cuda_ms(lambda: run(*args), reps=5)
+        live_ms, live_all = cuda_ms(lambda: gfn(*args), reps=5)
+        print(f"export_grad {label}: export and save {export_s:.2f} s "
+              f"({nbytes} bytes), op nodes {nodes}; loaded run "
+              f"{run_ms:.2f} ms median of {[round(x, 2) for x in run_all]} "
+              f"(launches {launches}), bit-equal to the live gradient: "
+              f"{live_ms:.2f} ms median of {[round(x, 2) for x in live_all]}")
+        del got
+    exact.raise_if_failed("export_grad")
+
+
 def main(only=()) -> int:
     """Every phase; with ``only`` (command-line words), the build and the
     phases whose names contain one of them, and no result lines."""
@@ -2394,7 +2815,16 @@ def main(only=()) -> int:
               ("UNet3D trainer", lambda: phase_unet3d(close_train, dev)),
               ("vg: voxel graph", lambda: phase_voxel_graph(exact, dev)),
               ("each: per-label extraction", lambda: phase_each(exact, dev)),
-              ("export: 512^3 forward", lambda: phase_export(exact, dev))]
+              ("export: 512^3 forward", lambda: phase_export(exact, dev)),
+              ("long: rows past the ceilings",
+               lambda: phase_long(Exact(), Close(), Close(),
+                                  Close(1e-5, atol=1e-4),
+                                  Close(1e-4, atol=0.0, atol_rel=1e-4),
+                                  Close(1e-5, atol=1e-4),
+                                  Close(1e-4, atol=0.0, atol_rel=1e-4),
+                                  kernels, dev)),
+              ("export_grad: exported gradients",
+               lambda: phase_export_grad(Exact(), dev))]
     if only:
         phases = [(name, fn) for name, fn in phases if name == "build"
                   or any(w.lower() in name.lower() for w in only)]

@@ -6,9 +6,9 @@ float32/64, bool), default anisotropy, and the ``parallel``/``order``
 keywords accepted for compatibility). The compute runs through
 ``ops.compose`` on a CUDA device unless ``device=`` names another; with no
 CUDA device and no ``device=`` every entry point raises. Axes longer than
-the device path takes fall back to the exact host implementation, except
-under ``voxel_graph=``, which raises past K1's ceiling as the JAX package
-has no host path for it.
+the device path takes fall back to the exact host implementation, as the
+JAX API's do past its device limits, except under ``voxel_graph=``, which
+has no host path there either and runs on the device at any length.
 """
 
 from __future__ import annotations
@@ -16,14 +16,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from edt_tpu_torch.ops import compose, minplus
+from edt_tpu_torch.ops import compose
 from edt_tpu_torch.ops import voxel_graph as vg
 from edt_tpu_torch.utils import host_reference
 from edt_tpu_torch.utils.profiling import counters
 
-# Longest axis the device path takes. CUDA: the K1 kernel's shared-memory
-# ceiling. CPU: the plain min-plus is O(n^2) a row, so longer axes take the
-# host's banded path, at the same length as the JAX package off the TPU.
+# Longest axis the device path takes; longer axes take the host's banded
+# path, as the JAX API's do past its own device limits. CUDA: K1 takes any
+# length, and this is where its shared-memory mode ends (``MAX_AXIS`` of
+# ``ops/minplus.py``), held here so the API dispatches as it always has.
+# CPU: the plain min-plus is O(n^2) a row, the same length as the JAX
+# package off the TPU.
+_DEVICE_MAX_AXIS_CUDA = 58048
 _DEVICE_MAX_AXIS_CPU = 128
 
 
@@ -38,7 +42,8 @@ def _device(device) -> torch.device:
 
 
 def _device_max_axis(device: torch.device) -> int:
-    return minplus.MAX_AXIS if device.type == "cuda" else _DEVICE_MAX_AXIS_CPU
+    return (_DEVICE_MAX_AXIS_CUDA if device.type == "cuda"
+            else _DEVICE_MAX_AXIS_CPU)
 
 
 def _order_of(data: np.ndarray) -> str:

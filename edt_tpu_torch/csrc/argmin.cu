@@ -44,6 +44,16 @@
 // of r: unwalled rows of barrier heights, whose r is the whole row, stop
 // just past the nearest zero.
 //
+// Long rows (past the shared-memory ceiling, any n; the wrapper may also
+// ask for this mode on a shorter row) take the same kernel's second
+// instantiation: a block of 256 threads for each kLongChunk targets of a
+// row, grid (rows, chunks). Every block reduces its whole row's floor and
+// bound from device memory, then searches its own chunk with f read from
+// device memory (the row stays in L2: a 65536-voxel row is 256 KiB); the
+// values and args are the short-row mode's, bit for bit. A warp's slowest
+// target then pays an L2 latency at every step. Rows past I16_MAX_AXIS
+// carry int32 offsets and counts (the wrapper's link_dtype).
+//
 // Exactness: every cost is __fadd_rn(f_j, __fmul_rn(w2, __fmul_rn(k, k)))
 // with k a float, two roundings as in the reference (built with -fmad=false
 // as well); the radius uses IEEE division and sqrt; a count is compared with
@@ -62,6 +72,7 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kLongChunk = 8192;  // long rows: targets a block searches
 constexpr int kSent16 = 30000;
 constexpr int kSent32 = 1 << 30;
 
@@ -85,27 +96,30 @@ __device__ __forceinline__ float load_wall(const void* walls, size_t k,
   return __fmul_rn(__fmul_rn(w2, cf), cf);
 }
 
-template <int kWall, int kArg>
+template <int kWall, int kArg, bool kLong>
 __global__ void __launch_bounds__(kMaxThreads)
 minplus_argmin_kernel(const float* __restrict__ f,
                       const void* __restrict__ walls,
                       float* __restrict__ out, void* __restrict__ arg, int n,
                       float w2) {
   constexpr bool kWalled = kWall != kNoWalls;
-  extern __shared__ float s_f[];
+  extern __shared__ float smem[];
   __shared__ float s_minf[kMaxThreads / 32];
   __shared__ float s_bound[kMaxThreads / 32];
   __shared__ float s_row_minf;
   __shared__ int s_radius;
 
   const size_t base = (size_t)blockIdx.x * (size_t)n;
+  // the row: staged in shared memory, or read from device memory (L2) on
+  // long rows
+  const float* s_f = kLong ? f + base : smem;
 
   // --- stage f, reduce the row's floor and bound ---
   float minf = INFINITY;
   float bound = -INFINITY;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float fi = f[base + i];
-    s_f[i] = fi;
+    if constexpr (!kLong) smem[i] = fi;
     minf = fminf(minf, fi);
     float b = fi;
     if (kWalled) b = fminf(fi, load_wall<kWall>(walls, base + i, w2));
@@ -144,8 +158,11 @@ minplus_argmin_kernel(const float* __restrict__ f,
   const int radius = s_radius;
   minf = s_row_minf;
 
-  // --- each target's outward search, stopped exactly, then the wall ---
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  // --- each target's outward search, stopped exactly, then the wall; a
+  // long row's block takes its own chunk of targets ---
+  const int lo = kLong ? (int)blockIdx.y * kLongChunk : 0;
+  const int hi = kLong ? min(n, lo + kLongChunk) : n;
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     const float wi = kWalled ? load_wall<kWall>(walls, base + i, w2) : INFINITY;
     const int kmax = min(radius, max(i, n - 1 - i));
     // j = i first; a best still INF at the end gets arg 0
@@ -193,32 +210,40 @@ minplus_argmin_kernel(const float* __restrict__ f,
 
 template <int kWall, int kArg>
 cudaError_t launch(const float* f, const void* walls, float* out, void* arg,
-                   long long rows, int n, float w2, cudaStream_t stream) {
+                   long long rows, int n, float w2, bool long_rows,
+                   cudaStream_t stream) {
+  if (long_rows) {  // a block a chunk of a row, f read from device memory
+    const dim3 grid((unsigned)rows, (unsigned)((n + kLongChunk - 1) / kLongChunk));
+    minplus_argmin_kernel<kWall, kArg, true><<<grid, kMaxThreads, 0, stream>>>(
+        f, walls, out, arg, n, w2);
+    return cudaGetLastError();
+  }
   // about eight targets a thread: a short row's block stays small, so
   // more rows share an SM and the reduction's barriers hold fewer warps
   int threads = ((n + 8 * 32 - 1) / (8 * 32)) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const size_t smem = (size_t)n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      minplus_argmin_kernel<kWall, kArg>,
+      minplus_argmin_kernel<kWall, kArg, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  minplus_argmin_kernel<kWall, kArg><<<(unsigned)rows, threads, smem, stream>>>(
-      f, walls, out, arg, n, w2);
+  minplus_argmin_kernel<kWall, kArg, false><<<(unsigned)rows, threads, smem,
+                                               stream>>>(f, walls, out, arg, n,
+                                                         w2);
   return cudaGetLastError();
 }
 
 template <int kWall>
 cudaError_t dispatch_arg(int arg_kind, const float* f, const void* walls,
                          float* out, void* arg, long long rows, int n,
-                         float w2, cudaStream_t stream) {
+                         float w2, bool long_rows, cudaStream_t stream) {
   switch (arg_kind) {
     case kAbsI32:
-      return launch<kWall, kAbsI32>(f, walls, out, arg, rows, n, w2, stream);
+      return launch<kWall, kAbsI32>(f, walls, out, arg, rows, n, w2, long_rows, stream);
     case kOffI16:
-      return launch<kWall, kOffI16>(f, walls, out, arg, rows, n, w2, stream);
+      return launch<kWall, kOffI16>(f, walls, out, arg, rows, n, w2, long_rows, stream);
     case kOffI32:
-      return launch<kWall, kOffI32>(f, walls, out, arg, rows, n, w2, stream);
+      return launch<kWall, kOffI32>(f, walls, out, arg, rows, n, w2, long_rows, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -230,22 +255,24 @@ extern "C" {
 // f, out: (rows, n) f32; walls: (rows, n) of wall_kind (0 none: may be
 // null, 1 f32, 2 int16 counts, 3 int32 counts); arg: (rows, n) of arg_kind
 // (0 absolute int32, 1 int16 offsets, 2 int32 offsets). All C-contiguous.
-// Returns a cudaError_t.
+// long_rows: the mode for rows past the shared-memory ceiling (any n; also
+// taken on request). Returns a cudaError_t.
 int edt_minplus_argmin(const void* f, const void* walls, void* out, void* arg,
                        long long rows, int n, float w2, int wall_kind,
-                       int arg_kind, void* stream) {
+                       int arg_kind, int long_rows, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const float* ff = (const float*)f;
   float* oo = (float*)out;
+  const bool lr = long_rows != 0;
   switch (wall_kind) {
     case kNoWalls:
-      return (int)dispatch_arg<kNoWalls>(arg_kind, ff, walls, oo, arg, rows, n, w2, st);
+      return (int)dispatch_arg<kNoWalls>(arg_kind, ff, walls, oo, arg, rows, n, w2, lr, st);
     case kWallF32:
-      return (int)dispatch_arg<kWallF32>(arg_kind, ff, walls, oo, arg, rows, n, w2, st);
+      return (int)dispatch_arg<kWallF32>(arg_kind, ff, walls, oo, arg, rows, n, w2, lr, st);
     case kWallI16:
-      return (int)dispatch_arg<kWallI16>(arg_kind, ff, walls, oo, arg, rows, n, w2, st);
+      return (int)dispatch_arg<kWallI16>(arg_kind, ff, walls, oo, arg, rows, n, w2, lr, st);
     case kWallI32:
-      return (int)dispatch_arg<kWallI32>(arg_kind, ff, walls, oo, arg, rows, n, w2, st);
+      return (int)dispatch_arg<kWallI32>(arg_kind, ff, walls, oo, arg, rows, n, w2, lr, st);
   }
   return (int)cudaErrorInvalidValue;
 }

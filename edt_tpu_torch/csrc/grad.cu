@@ -36,6 +36,13 @@
 // link in the row. A chunk whose 32 lanes share one target serialises 31
 // shuffle steps in one lane, still O(1) a voxel.
 //
+// Long rows (past the shared-memory ceiling, any n; the wrapper may also
+// ask for this mode on a shorter row) take the same kernel's second
+// instantiation: the accumulator is the output row in device memory,
+// zeroed by the warp first and touched by no other warp; __syncwarp orders
+// each chunk's writes before the next chunk's reads. Every target sums its
+// sources in the same order as in shared memory: the same bits.
+//
 // K4, the binary-pass scan. Replaces edt_tpu/ops/pallas_kernels.py:
 // _binary_grad_scan_kernel. Offsets o mark zero sites with the dtype max and
 // wall wins with off_sent (inert: g and o read as 0). With o0 = 0 at zero
@@ -136,7 +143,7 @@ __device__ __forceinline__ void scatter_chunk(float* acc, int t, float gi,
   __syncwarp();
 }
 
-template <int kLink>
+template <int kLink, bool kLong>
 __global__ void __launch_bounds__(kGradWarps * 32)
 minplus_grad_kernel(const float* __restrict__ g, const void* __restrict__ links,
                     float* __restrict__ out, long long rows, int n,
@@ -146,8 +153,10 @@ minplus_grad_kernel(const float* __restrict__ g, const void* __restrict__ links,
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= rows) return;  // whole warps only: the shuffles stay full
-  float* acc = smem + (size_t)warp * n;
   const size_t base = (size_t)row * (size_t)n;
+  // the accumulator: in shared memory, or on long rows the output row
+  // itself, which only this warp touches
+  float* acc = kLong ? out + base : smem + (size_t)warp * n;
 
   for (int j = lane; j < n; j += 32) acc[j] = 0.0f;
   __syncwarp();
@@ -173,7 +182,8 @@ minplus_grad_kernel(const float* __restrict__ g, const void* __restrict__ links,
   }
 
   // --- write the row out, coalesced ---
-  for (int j = lane; j < n; j += 32) out[base + j] = acc[j];
+  if constexpr (!kLong)
+    for (int j = lane; j < n; j += 32) out[base + j] = acc[j];
 }
 
 template <int kLink>
@@ -405,7 +415,14 @@ binary_grad_scan_reg_kernel(const float* __restrict__ g,
 template <int kLink>
 cudaError_t launch_grad(const float* g, const void* links, float* out,
                         long long rows, int n, int off_sent, int has_sent,
-                        cudaStream_t stream) {
+                        bool long_rows, cudaStream_t stream) {
+  if (long_rows) {  // kGradWarps rows a block, each accumulating in out
+    const long long blocks = (rows + kGradWarps - 1) / kGradWarps;
+    minplus_grad_kernel<kLink, true><<<(unsigned)blocks, kGradWarps * 32, 0,
+                                       stream>>>(g, links, out, rows, n,
+                                                 off_sent, has_sent);
+    return cudaGetLastError();
+  }
   // as many rows a block as their accumulators fit, up to kGradWarps
   long long warps = (kMaxSmem - 256) / ((long long)n * (long long)sizeof(float));
   if (warps > kGradWarps) warps = kGradWarps;
@@ -413,13 +430,13 @@ cudaError_t launch_grad(const float* g, const void* links, float* out,
   if (warps < 1) return cudaErrorInvalidValue;
   const size_t smem = (size_t)warps * (size_t)n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      minplus_grad_kernel<kLink>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      minplus_grad_kernel<kLink, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (rows + warps - 1) / warps;
-  minplus_grad_kernel<kLink><<<(unsigned)blocks, (unsigned)warps * 32, smem,
-                               stream>>>(g, links, out, rows, n, off_sent,
-                                         has_sent);
+  minplus_grad_kernel<kLink, false><<<(unsigned)blocks, (unsigned)warps * 32,
+                                      smem, stream>>>(g, links, out, rows, n,
+                                                      off_sent, has_sent);
   return cudaGetLastError();
 }
 
@@ -473,20 +490,23 @@ extern "C" {
 
 // K3. g, out: (rows, n) f32; links: (rows, n) of link_kind (0 absolute
 // int32, 1 int16 offsets, 2 int32 offsets). off_sent marks inert offsets
-// when has_sent. All C-contiguous. Returns a cudaError_t.
+// when has_sent. All C-contiguous. long_rows: the mode for rows past the
+// shared-memory ceiling (any n; also taken on request). Returns a
+// cudaError_t.
 int edt_minplus_grad(const void* g, const void* links, void* out,
                      long long rows, int n, int link_kind, int off_sent,
-                     int has_sent, void* stream) {
+                     int has_sent, int long_rows, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const float* gg = (const float*)g;
   float* oo = (float*)out;
+  const bool lr = long_rows != 0;
   switch (link_kind) {
     case kAbsI32:
-      return (int)launch_grad<kAbsI32>(gg, links, oo, rows, n, off_sent, has_sent, st);
+      return (int)launch_grad<kAbsI32>(gg, links, oo, rows, n, off_sent, has_sent, lr, st);
     case kOffI16:
-      return (int)launch_grad<kOffI16>(gg, links, oo, rows, n, off_sent, has_sent, st);
+      return (int)launch_grad<kOffI16>(gg, links, oo, rows, n, off_sent, has_sent, lr, st);
     case kOffI32:
-      return (int)launch_grad<kOffI32>(gg, links, oo, rows, n, off_sent, has_sent, st);
+      return (int)launch_grad<kOffI32>(gg, links, oo, rows, n, off_sent, has_sent, lr, st);
   }
   return (int)cudaErrorInvalidValue;
 }

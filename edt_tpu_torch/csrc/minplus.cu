@@ -48,6 +48,16 @@
 // window, bit for bit. A target takes about sqrt((min(f_i, wall_i) - lb) /
 // w2) steps instead of r: none where its segment's heights are flat.
 //
+// Long rows (past the shared-memory ceiling, any n; the wrapper may also
+// ask for this mode on a shorter row) take the same kernel's second
+// instantiation: a block of 256 threads for each kLongChunk targets of a
+// row, grid (rows, chunks). Every block reads its whole row from device
+// memory for the floor minf and the bound (the row stays in L2: a
+// 65536-voxel row is 256 KiB), then searches its own chunk's targets with
+// the row's floor, f read from device memory, the reach read again from ss
+// and se in full ints (no 16-bit packing, so no limit on n). The values
+// are those of the short-row mode's parked targets, bit for bit.
+//
 // Exactness: every cost is __fadd_rn(f_j, __fmul_rn(w2, __fmul_rn(k, k)))
 // with k a float, two roundings as in the reference (built with -fmad=false
 // as well), and the radius uses IEEE division and sqrt.
@@ -69,6 +79,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kRegTargets = 16;  // targets a thread keeps in registers
+constexpr int kLongChunk = 8192;  // long rows: targets a block searches
 
 __device__ __forceinline__ float sq_wall(float w2, int k) {
   const float kf = (float)k;
@@ -88,23 +99,32 @@ __device__ __forceinline__ float wall_of(int i, int kl, int kr, int n,
 }
 
 // min(wall, min_j f_j + w2 (i - j)^2 over i - kl <= j <= i + kr) by the
-// outward search, stopped exactly; lb <= every f_j of that window.
-__device__ __forceinline__ float search(const float* s_f, int i, int packed,
-                                        int n, int radius, float lb,
-                                        float w2, bool black_border) {
-  const int kl = packed & 0xffff, kr = (unsigned)packed >> 16;
+// outward search, stopped exactly; lb <= every f_j of that window. row is
+// the row's f in shared memory, or in device memory on long rows.
+__device__ __forceinline__ float search_span(const float* row, int i, int kl,
+                                             int kr, int n, int radius,
+                                             float lb, float w2,
+                                             bool black_border) {
   const int kmax = min(radius, max(kl, kr));
-  float best = fminf(__fadd_rn(s_f[i], __fmul_rn(w2, 0.0f)),
+  float best = fminf(__fadd_rn(row[i], __fmul_rn(w2, 0.0f)),
                      wall_of(i, kl, kr, n, w2, black_border));
   float kf = 0.0f;
   for (int k = 1; k <= kmax; ++k) {
     kf = __fadd_rn(kf, 1.0f);
     const float q = __fmul_rn(w2, __fmul_rn(kf, kf));
     if (__fadd_rn(lb, q) > best) break;  // nothing further goes below best
-    if (k <= kl) best = fminf(best, __fadd_rn(s_f[i - k], q));
-    if (k <= kr) best = fminf(best, __fadd_rn(s_f[i + k], q));
+    if (k <= kl) best = fminf(best, __fadd_rn(row[i - k], q));
+    if (k <= kr) best = fminf(best, __fadd_rn(row[i + k], q));
   }
   return best;
+}
+
+// search_span with the reach packed as kl | kr << 16.
+__device__ __forceinline__ float search(const float* s_f, int i, int packed,
+                                        int n, int radius, float lb,
+                                        float w2, bool black_border) {
+  return search_span(s_f, i, packed & 0xffff, (unsigned)packed >> 16, n,
+                     radius, lb, w2, black_border);
 }
 
 // f as an unsigned key of the same order, and back.
@@ -156,7 +176,7 @@ __device__ __forceinline__ int reach(int i, int s, int e) {
   return (int)((unsigned)(i - s) | ((unsigned)(e - 1 - i) << 16));
 }
 
-template <bool kMasked>
+template <bool kMasked, bool kLong>
 __global__ void __launch_bounds__(kMaxThreads)
 minplus_walls_kernel(const float* __restrict__ f,
                      const int32_t* __restrict__ ss,
@@ -169,56 +189,70 @@ minplus_walls_kernel(const float* __restrict__ f,
 
   const int g = threadIdx.x / group;  // the row within the block
   const int t = threadIdx.x - g * group;  // the thread within the row
-  const long long row = (long long)blockIdx.x * (blockDim.x / group) + g;
+  const long long row = kLong ? (long long)blockIdx.x
+                              : (long long)blockIdx.x * (blockDim.x / group) + g;
   const bool valid = row < rows;
   const size_t base = (size_t)(valid ? row : 0) * (size_t)n;
   // a warp's row keeps its segments' mins beside f
-  const bool warp_row = kMasked && group == 32;
+  const bool warp_row = !kLong && kMasked && group == 32;
   float* s_f = smem + (size_t)g * n * (warp_row ? 2 : 1);
   float* s_lb = s_f + n;
   int* parked = reinterpret_cast<int*>(out) + base;
 
   // --- stage f, read ss/se once into the reach, reduce floor and bound;
-  // the loads of each half of a thread's targets go out before any is used
+  // the loads of each half of a thread's targets go out before any is used.
+  // Long rows stage nothing: each block reads its whole row for the floor
+  // and bound, and searches f in device memory (L2) for its own chunk.
   float minf = INFINITY;
   float bound = -INFINITY;
   int packed[kRegTargets];
   constexpr int kHalf = kRegTargets / 2;
+  if constexpr (kLong) {
+    for (int i = t; valid && i < n; i += group) {
+      const float fi = __ldg(f + base + i);
+      const int s = kMasked ? __ldg(ss + base + i) : 0;
+      const int e = kMasked ? __ldg(se + base + i) : n;
+      minf = fminf(minf, fi);
+      bound = fmaxf(bound, fminf(fi, wall_of(i, i - s, e - 1 - i, n, w2,
+                                             black_border)));
+    }
+  } else {
 #pragma unroll
-  for (int h = 0; h < kRegTargets; h += kHalf) {
-    float fh[kHalf];
-    int sh[kHalf], eh[kHalf];
+    for (int h = 0; h < kRegTargets; h += kHalf) {
+      float fh[kHalf];
+      int sh[kHalf], eh[kHalf];
 #pragma unroll
-    for (int q = 0; q < kHalf; ++q) {
-      const int i = t + (h + q) * group;
-      if (valid && i < n) {
-        fh[q] = __ldg(f + base + i);
-        sh[q] = kMasked ? __ldg(ss + base + i) : 0;
-        eh[q] = kMasked ? __ldg(se + base + i) : n;
+      for (int q = 0; q < kHalf; ++q) {
+        const int i = t + (h + q) * group;
+        if (valid && i < n) {
+          fh[q] = __ldg(f + base + i);
+          sh[q] = kMasked ? __ldg(ss + base + i) : 0;
+          eh[q] = kMasked ? __ldg(se + base + i) : n;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kHalf; ++q) {
+        const int i = t + (h + q) * group;
+        packed[h + q] = 0;
+        if (valid && i < n) {
+          s_f[i] = fh[q];
+          minf = fminf(minf, fh[q]);
+          packed[h + q] = reach(i, sh[q], eh[q]);
+          bound = fmaxf(bound, fminf(fh[q], wall_of(i, i - sh[q], eh[q] - 1 - i,
+                                                    n, w2, black_border)));
+        }
       }
     }
-#pragma unroll
-    for (int q = 0; q < kHalf; ++q) {
-      const int i = t + (h + q) * group;
-      packed[h + q] = 0;
-      if (valid && i < n) {
-        s_f[i] = fh[q];
-        minf = fminf(minf, fh[q]);
-        packed[h + q] = reach(i, sh[q], eh[q]);
-        bound = fmaxf(bound, fminf(fh[q], wall_of(i, i - sh[q], eh[q] - 1 - i,
-                                                  n, w2, black_border)));
-      }
+    // rows longer than kRegTargets * group: the reach waits in d's own slot
+    for (int i = t + kRegTargets * group; valid && i < n; i += group) {
+      const float fi = f[base + i];
+      s_f[i] = fi;
+      minf = fminf(minf, fi);
+      const int p = reach(i, kMasked ? ss[base + i] : 0, kMasked ? se[base + i] : n);
+      parked[i] = p;
+      bound = fmaxf(bound, fminf(fi, wall_of(i, p & 0xffff, (unsigned)p >> 16,
+                                             n, w2, black_border)));
     }
-  }
-  // rows longer than kRegTargets * group: the reach waits in d's own slot
-  for (int i = t + kRegTargets * group; valid && i < n; i += group) {
-    const float fi = f[base + i];
-    s_f[i] = fi;
-    minf = fminf(minf, fi);
-    const int p = reach(i, kMasked ? ss[base + i] : 0, kMasked ? se[base + i] : n);
-    parked[i] = p;
-    bound = fmaxf(bound, fminf(fi, wall_of(i, p & 0xffff, (unsigned)p >> 16,
-                                           n, w2, black_border)));
   }
   for (int off = 16; off > 0; off >>= 1) {
     minf = fminf(minf, __shfl_xor_sync(0xffffffffu, minf, off));
@@ -256,22 +290,39 @@ minplus_walls_kernel(const float* __restrict__ f,
   const int radius = (int)rf;
 
   // --- each target's outward search in its segment, stopped exactly ---
+  if constexpr (kLong) {
+    const int lo = (int)blockIdx.y * kLongChunk;
+    const int hi = min(n, lo + kLongChunk);
+    for (int i = lo + t; i < hi; i += group) {
+      const int s = kMasked ? __ldg(ss + base + i) : 0;
+      const int e = kMasked ? __ldg(se + base + i) : n;
+      out[base + i] = search_span(f + base, i, i - s, e - 1 - i, n, radius,
+                                  minf, w2, black_border);
+    }
+  } else {
 #pragma unroll
-  for (int m = 0; m < kRegTargets; ++m) {
-    const int i = t + m * group;
-    if (i < n)
-      out[base + i] = search(s_f, i, packed[m], n, radius,
-                             warp_row ? s_lb[i] : minf, w2, black_border);
+    for (int m = 0; m < kRegTargets; ++m) {
+      const int i = t + m * group;
+      if (i < n)
+        out[base + i] = search(s_f, i, packed[m], n, radius,
+                               warp_row ? s_lb[i] : minf, w2, black_border);
+    }
+    for (int i = t + kRegTargets * group; i < n; i += group)
+      out[base + i] = search(s_f, i, parked[i], n, radius, minf, w2,
+                             black_border);
   }
-  for (int i = t + kRegTargets * group; i < n; i += group)
-    out[base + i] = search(s_f, i, parked[i], n, radius, minf, w2,
-                           black_border);
 }
 
 template <bool kMasked>
 cudaError_t launch(const float* f, const int32_t* ss, const int32_t* se,
                    float* out, long long rows, int n, float w2,
-                   bool black_border, cudaStream_t stream) {
+                   bool black_border, bool long_rows, cudaStream_t stream) {
+  if (long_rows) {  // a block a chunk of a row, f read from device memory
+    const dim3 grid((unsigned)rows, (unsigned)((n + kLongChunk - 1) / kLongChunk));
+    minplus_walls_kernel<kMasked, true><<<grid, kMaxThreads, 0, stream>>>(
+        f, ss, se, out, rows, n, kMaxThreads, w2, black_border);
+    return cudaGetLastError();
+  }
   // G threads a row, at most kRegTargets targets each up to 4096; short
   // rows share a block of 64 threads (small blocks measured fastest)
   int group = ((n + 32 * kRegTargets - 1) / (32 * kRegTargets)) * 32;
@@ -280,13 +331,13 @@ cudaError_t launch(const float* f, const int32_t* ss, const int32_t* se,
   const size_t row_floats = (kMasked && group == 32 ? 2 : 1) * (size_t)n;
   const size_t smem = (size_t)per_block * row_floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      minplus_walls_kernel<kMasked>,
+      minplus_walls_kernel<kMasked, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (rows + per_block - 1) / per_block;
-  minplus_walls_kernel<kMasked><<<(unsigned)blocks, per_block * group, smem,
-                                  stream>>>(f, ss, se, out, rows, n, group, w2,
-                                            black_border);
+  minplus_walls_kernel<kMasked, false><<<(unsigned)blocks, per_block * group,
+                                         smem, stream>>>(
+      f, ss, se, out, rows, n, group, w2, black_border);
   return cudaGetLastError();
 }
 
@@ -295,18 +346,20 @@ cudaError_t launch(const float* f, const int32_t* ss, const int32_t* se,
 extern "C" {
 
 // f, out: (rows, n) f32, C-contiguous. ss, se: (rows, n) int32 segment
-// bounds when masked, else ignored (may be null). Returns a cudaError_t.
+// bounds when masked, else ignored (may be null). long_rows: the mode for
+// rows past the shared-memory ceiling (any n; also taken on request).
+// Returns a cudaError_t.
 int edt_minplus_walls(const void* f, const void* ss, const void* se,
                       void* out, long long rows, int n, float w2, int masked,
-                      int black_border, void* stream) {
+                      int black_border, int long_rows, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (masked) {
     return (int)launch<true>((const float*)f, (const int32_t*)ss,
                              (const int32_t*)se, (float*)out, rows, n, w2,
-                             black_border != 0, st);
+                             black_border != 0, long_rows != 0, st);
   }
   return (int)launch<false>((const float*)f, nullptr, nullptr, (float*)out,
-                            rows, n, w2, black_border != 0, st);
+                            rows, n, w2, black_border != 0, long_rows != 0, st);
 }
 
 }  // extern "C"

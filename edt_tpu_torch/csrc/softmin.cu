@@ -77,7 +77,8 @@
 //   reciprocal a target.
 //
 // The axis ceilings are the opt-in shared memory over 4 (K5, on rows a
-// block holds) and over 8 (K6). Costs round twice,
+// block holds) and over 8 (K6). Past them each kernel has a long-row mode
+// (a second instantiation, below) that reads the row from device memory. Costs round twice,
 // __fadd_rn(f, __fmul_rn(w2, __fmul_rn(k, k))), as in K1 and K2 (built
 // with -fmad=false as well).
 //
@@ -101,6 +102,7 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kWarpRows = 4;  // K5: rows a block on rows a warp holds
 constexpr int kWarpMaxN = 2048;  // K5: the longest row a warp holds
+constexpr int kLongChunk = 8192;  // K5, long rows: targets a block walks
 constexpr float kSoftCut = 30.0f;
 
 // Block-wide min of lo and max of hi, returned to every thread. Also a
@@ -258,29 +260,37 @@ softmin_warp_kernel(const float* __restrict__ f, float* __restrict__ out,
 }
 
 // K5 on longer rows: one block a row, f in shared memory (4 B a voxel: the
-// axis ceiling), the same walks with the row's ends tested.
+// axis ceiling), the same walks with the row's ends tested. Past the
+// ceiling (any n; the wrapper may also ask for this mode on a shorter row),
+// the second instantiation: a block for each kLongChunk targets of a row,
+// grid (rows, chunks), each reducing its whole row's floor and walking its
+// own chunk's targets over f in device memory (the row stays in L2).
+template <bool kLong>
 __global__ void __launch_bounds__(kMaxThreads)
 softmin_block_kernel(const float* __restrict__ f, float* __restrict__ out,
                      int n, float w2, float t) {
-  extern __shared__ float s_f[];
+  extern __shared__ float smem[];
   const size_t base = (size_t)blockIdx.x * (size_t)n;
+  const float* s_f = kLong ? f + base : smem;
+  const int lo = kLong ? (int)blockIdx.y * kLongChunk : 0;
+  const int hi = kLong ? min(n, lo + kLongChunk) : n;
 
   float minf = INFINITY;
   float unused = -INFINITY;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float fi = f[base + i];
-    s_f[i] = fi;
+    if constexpr (!kLong) smem[i] = fi;
     minf = fminf(minf, fi);
   }
   block_min_max(minf, unused);
 
   if (minf == INFINITY) {  // all-INF row: every cost is INF, d stays INF
-    for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = INFINITY;
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) out[base + i] = INFINITY;
     return;
   }
   const float ncut = -__fmul_rn(kSoftCut, t);
   const float scale = __fdiv_rn(kLog2e, t);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     const int kmax = max(i, n - 1 - i);
     float m = s_f[i];
     float s = 1.0f;
@@ -312,6 +322,12 @@ __device__ __forceinline__ float take(float di, float fj, float q, float kk,
   return p;
 }
 
+// K6's second instantiation (kLong) takes rows past its ceiling (any n; the
+// wrapper may also ask for it on a shorter row): f read from device memory
+// (L2), df accumulated in the output row itself, which only this warp
+// touches, zeroed first; __syncwarp orders the scatter's steps as in shared
+// memory. The same sums in the same order: the same bits.
+template <bool kLong>
 __global__ void __launch_bounds__(32 * kGradRows)
 softmin_grad_kernel(const float* __restrict__ f, const float* __restrict__ d,
                     const float* __restrict__ g, float* __restrict__ df,
@@ -322,13 +338,14 @@ softmin_grad_kernel(const float* __restrict__ f, const float* __restrict__ d,
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;  // a whole warp: no block-wide barrier follows
   const size_t base = (size_t)row * (size_t)n;
-  float* s_f = smem + (size_t)(threadIdx.x >> 5) * 2 * n;
-  float* s_df = s_f + n;
+  float* s_row = smem + (size_t)(threadIdx.x >> 5) * 2 * n;
+  const float* s_f = kLong ? f + base : s_row;
+  float* s_df = kLong ? df + base : s_row + n;
 
   float minf = INFINITY;
   for (int j = lane; j < n; j += 32) {
     const float fj = f[base + j];
-    s_f[j] = fj;
+    if constexpr (!kLong) s_row[j] = fj;
     s_df[j] = 0.0f;
     minf = fminf(minf, fj);
   }
@@ -423,7 +440,8 @@ softmin_grad_kernel(const float* __restrict__ f, const float* __restrict__ d,
     }
   }
   __syncwarp();
-  for (int j = lane; j < n; j += 32) df[base + j] = s_df[j];
+  if constexpr (!kLong)
+    for (int j = lane; j < n; j += 32) df[base + j] = s_df[j];
 }
 
 int threads_for(int n) {
@@ -435,9 +453,17 @@ int threads_for(int n) {
 
 extern "C" {
 
-// f, out: (rows, n) f32, C-contiguous. Returns a cudaError_t.
+// f, out: (rows, n) f32, C-contiguous. long_rows: the mode for rows past
+// the shared-memory ceiling (any n; also taken on request). Returns a
+// cudaError_t.
 int edt_softmin(const void* f, void* out, long long rows, int n, float w2,
-                float t, void* stream) {
+                float t, int long_rows, void* stream) {
+  if (long_rows) {
+    const dim3 grid((unsigned)rows, (unsigned)((n + kLongChunk - 1) / kLongChunk));
+    softmin_block_kernel<true><<<grid, kMaxThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)f, (float*)out, n, w2, t);
+    return (int)cudaGetLastError();
+  }
   if (n <= kWarpMaxN) {  // a warp a row, its row between two pads of INF
     const long long per_block = rows < kWarpRows ? rows : kWarpRows;
     const size_t smem = (size_t)per_block * (4 * (size_t)n + 6) * sizeof(float);
@@ -453,19 +479,29 @@ int edt_softmin(const void* f, void* out, long long rows, int n, float w2,
   }
   const size_t smem = (size_t)n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      softmin_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      softmin_block_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  softmin_block_kernel<<<(unsigned)rows, threads_for(n), smem,
-                         (cudaStream_t)stream>>>((const float*)f, (float*)out,
-                                                 n, w2, t);
+  softmin_block_kernel<false><<<(unsigned)rows, threads_for(n), smem,
+                                (cudaStream_t)stream>>>((const float*)f,
+                                                        (float*)out, n, w2, t);
   return (int)cudaGetLastError();
 }
 
-// f, d, g, df, e: (rows, n) f32, C-contiguous. Returns a cudaError_t.
+// f, d, g, df, e: (rows, n) f32, C-contiguous. long_rows: the mode for
+// rows past the shared-memory ceiling (any n; also taken on request).
+// Returns a cudaError_t.
 int edt_softmin_grad(const void* f, const void* d, const void* g, void* df,
                      void* e, long long rows, int n, float w2, float t,
-                     void* stream) {
+                     int long_rows, void* stream) {
+  if (long_rows) {  // kGradRows rows a block, nothing in shared memory
+    const long long blocks = (rows + kGradRows - 1) / kGradRows;
+    softmin_grad_kernel<true><<<(unsigned)blocks, 32 * kGradRows, 0,
+                                (cudaStream_t)stream>>>(
+        (const float*)f, (const float*)d, (const float*)g, (float*)df,
+        (float*)e, rows, n, w2, t);
+    return (int)cudaGetLastError();
+  }
   // up to kGradRows rows a block, as many as the opt-in shared memory holds
   const size_t row_bytes = 2 * (size_t)n * sizeof(float);
   int per_block = (int)(232448 / row_bytes);
@@ -473,11 +509,11 @@ int edt_softmin_grad(const void* f, const void* d, const void* g, void* df,
   if (per_block < 1) per_block = 1;
   const size_t smem = (size_t)per_block * row_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      softmin_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      softmin_grad_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (rows + per_block - 1) / per_block;
-  softmin_grad_kernel<<<(unsigned)blocks, 32 * per_block, smem,
+  softmin_grad_kernel<false><<<(unsigned)blocks, 32 * per_block, smem,
                         (cudaStream_t)stream>>>(
       (const float*)f, (const float*)d, (const float*)g, (float*)df,
       (float*)e, rows, n, w2, t);

@@ -53,13 +53,17 @@ INF = float("inf")
 
 class Kernels(NamedTuple):
     """The kernels the passes call: at t = 0 K2 forward, K3 and K4
-    backward; at t > 0 K5 forward, K6 backward."""
+    backward; at t > 0 K5 forward, K6 backward. The defaults are the
+    kernels' ``torch.library`` custom ops (``edt_tpu_torch::minplus_argmin``
+    and so on: the kernel on CUDA tensors, the plain version on CPU
+    tensors), so that ``torch.export`` records every pass of a forward and
+    of its gradient as op nodes."""
 
-    forward: Callable = argmin.minplus_argmin  # K2
-    gather: Callable = grad.minplus_grad  # K3
-    scan: Callable = grad.binary_grad_scan  # K4
-    softmin: Callable = soft_ops.softmin  # K5
-    softmin_grad: Callable = soft_ops.softmin_grad  # K6
+    forward: Callable = torch.ops.edt_tpu_torch.minplus_argmin  # K2
+    gather: Callable = torch.ops.edt_tpu_torch.minplus_grad  # K3
+    scan: Callable = torch.ops.edt_tpu_torch.binary_grad_scan  # K4
+    softmin: Callable = torch.ops.edt_tpu_torch.softmin  # K5
+    softmin_grad: Callable = torch.ops.edt_tpu_torch.softmin_grad  # K6
 
 
 KERNELS = Kernels()
@@ -229,7 +233,9 @@ class _MinplusSoft(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f, w2, t, kernels):
         d = kernels.softmin(f, w2, t)
-        ctx.save_for_backward(f, d)
+        # d.detach(): an output saved as it is leaves a fake tensor among a
+        # non-strict torch.export's constants
+        ctx.save_for_backward(f, d.detach())
         ctx.w2, ctx.t, ctx.kernels = w2, t, kernels
         return d
 

@@ -6,7 +6,10 @@ forward of the differentiable EDT at temperature 0. The kernel is
 ctypes); ``minplus_argmin_plain`` is its plain PyTorch version.
 
 ``minplus_argmin`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors. ``launches`` counts the kernel launches.
+version only for CPU tensors. ``launches`` counts the kernel launches,
+``long_launches`` those in its long-row mode (rows past ``MAX_AXIS``). The
+same wrapper is the ``torch.library`` custom op
+``edt_tpu_torch::minplus_argmin``.
 """
 
 from __future__ import annotations
@@ -17,12 +20,14 @@ import functools
 import torch
 
 from edt_tpu_torch.ops import _build, core
-from edt_tpu_torch.ops.minplus import MAX_SMEM_BYTES, PLAIN_COST_BYTES, _check
+from edt_tpu_torch.ops.minplus import (MAX_SMEM_BYTES, _check, plain_chunks,
+                                       quad_rows)
 from edt_tpu_torch.ops.wall_sentinels import WALL_SENT16, WALL_SENT32
 
-# Longest row the kernel takes: it stages the f32 row in shared memory,
-# 4 B a voxel (the walls stay in device memory), within an H100 block's
-# opt-in 232448 bytes less the kernel's few static bytes. Longer axes raise.
+# Longest row of the kernel's shared-memory mode: it stages the f32 row in
+# shared memory, 4 B a voxel (the walls stay in device memory), within an
+# H100 block's opt-in 232448 bytes less the kernel's few static bytes.
+# Longer rows take its long-row mode (the row read from device memory).
 MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
 
 # Rows up to this length keep int16 link offsets and int16 wall counts.
@@ -33,6 +38,7 @@ I16_MAX_AXIS = 16000
 _WALL_KINDS = {None: 0, torch.float32: 1, torch.int16: 2, torch.int32: 3}
 
 launches = 0
+long_launches = 0
 
 
 def link_dtype(n: int) -> torch.dtype:
@@ -64,38 +70,20 @@ def _check_walls(f, walls):
                          f"(got n={f.shape[-1]}); use int32 counts")
 
 
-def _argmin_chunk(f, i0, i1, w2):
-    """Leftmost argmin and value of the (rows, targets i0..i1, n) costs."""
-    n = f.shape[-1]
-    i = torch.arange(i0, i1, dtype=torch.float32, device=f.device)
-    j = torch.arange(n, dtype=torch.float32, device=f.device)
-    diff = i[:, None] - j[None, :]
-    cost = f[:, None, :] + w2 * (diff * diff)
-    arg = cost.argmin(dim=-1)  # the first index on ties
-    return cost.gather(-1, arg.unsqueeze(-1)).squeeze(-1), arg
-
-
 def minplus_argmin_plain(f, w2, walls=None, emit_offsets=False):
     """Plain PyTorch version of the kernel: the brute-force cost tensor
-    with ``argmin``, chunked over rows (and targets, for long rows) under
-    ``PLAIN_COST_BYTES``, then the wall clamp and the arg encoding."""
+    with ``argmin`` (the first index on ties), over ``plain_chunks`` of
+    rows and targets, then the wall clamp and the arg encoding."""
     _check_walls(f, walls)
     R, n = f.shape
     w2 = core.f32(w2)
     d = torch.empty_like(f)
     argj = torch.empty((R, n), dtype=torch.int64, device=f.device)
-    if R and n:
-        row_bytes = 4 * n * n
-        if row_bytes <= PLAIN_COST_BYTES:
-            rows, tgt = max(1, PLAIN_COST_BYTES // row_bytes), n
-        else:
-            rows, tgt = 1, max(1, PLAIN_COST_BYTES // (4 * n))
-        for r0 in range(0, R, rows):
-            for i0 in range(0, n, tgt):
-                i1 = min(n, i0 + tgt)
-                dd, aa = _argmin_chunk(f[r0:r0 + rows], i0, i1, w2)
-                d[r0:r0 + rows, i0:i1] = dd
-                argj[r0:r0 + rows, i0:i1] = aa
+    for r0, r1, i0, i1 in plain_chunks(R, n):
+        cost = f[r0:r1, None, :] + quad_rows(i0, i1, n, w2, f.device)
+        arg = cost.argmin(dim=-1)
+        d[r0:r1, i0:i1] = cost.gather(-1, arg.unsqueeze(-1)).squeeze(-1)
+        argj[r0:r1, i0:i1] = arg
     idx = torch.arange(n, dtype=torch.int64, device=f.device)
     win = None
     if walls is not None:
@@ -119,12 +107,13 @@ def _kernel():
     fn = lib.edt_minplus_argmin
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def minplus_argmin(f, w2, walls=None, emit_offsets=False):
+def minplus_argmin(f, w2, walls=None, emit_offsets=False, *,
+                   _long_rows=False):
     """(d, arg): d[r, i] = min_j f[r, j] + w2 (i - j)^2 with its leftmost
     argmin, the walls min'd in (ties to the candidate).
 
@@ -132,10 +121,11 @@ def minplus_argmin(f, w2, walls=None, emit_offsets=False):
     int16/int32 wall counts (>= WALL_SENT16/32 = open). arg: absolute
     int32 index, ~i on a wall win; with ``emit_offsets`` the offset
     argj - i in ``link_dtype(n)``, the dtype's min on a wall win. All
-    C-contiguous on one device. CUDA tensors run the K2 kernel; CPU
-    tensors the plain version.
+    C-contiguous on one device. CUDA tensors run the K2 kernel (its
+    long-row mode past ``MAX_AXIS``, or with ``_long_rows``, which holds the
+    two modes against each other); CPU tensors the plain version.
     """
-    global launches
+    global launches, long_launches
     if f.device.type == "cpu":
         return minplus_argmin_plain(f, w2, walls, emit_offsets)
     if f.device.type != "cuda":
@@ -147,8 +137,6 @@ def minplus_argmin(f, w2, walls=None, emit_offsets=False):
     _check_walls(f, walls)
     if walls is not None:
         _check("walls", walls, walls.dtype, (R, n), f.device)
-    if n > MAX_AXIS:
-        raise ValueError(f"rows of {n} exceed the kernel's {MAX_AXIS}")
     if R >= 2 ** 31:
         raise ValueError(f"{R} rows exceed one launch grid")
     adt = link_dtype(n) if emit_offsets else torch.int32
@@ -156,13 +144,31 @@ def minplus_argmin(f, w2, walls=None, emit_offsets=False):
     arg = torch.empty((R, n), dtype=adt, device=f.device)
     if R == 0 or n == 0:
         return d, arg
+    long_rows = _long_rows or n > MAX_AXIS
     err = _kernel()(
         f.data_ptr(), None if walls is None else walls.data_ptr(),
         d.data_ptr(), arg.data_ptr(), R, n, core.f32(w2),
         _WALL_KINDS[None if walls is None else walls.dtype],
         (1 if adt == torch.int16 else 2) if emit_offsets else 0,
-        torch.cuda.current_stream(f.device).cuda_stream)
+        int(long_rows), torch.cuda.current_stream(f.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"minplus_argmin kernel launch failed: cudaError {err}")
     launches += 1
+    long_launches += long_rows
     return d, arg
+
+
+@torch.library.custom_op(
+    "edt_tpu_torch::minplus_argmin", mutates_args=(),
+    schema="(Tensor f, float w2, Tensor? walls=None, bool emit_offsets=False)"
+           " -> (Tensor, Tensor)")
+def minplus_argmin_op(f, w2, walls=None, emit_offsets=False):
+    """K2 as a custom op: ``minplus_argmin``, which launches the kernel on
+    CUDA tensors and runs the plain version on CPU tensors."""
+    return minplus_argmin(f, w2, walls, emit_offsets)
+
+
+@minplus_argmin_op.register_fake
+def _minplus_argmin_op_fake(f, w2, walls=None, emit_offsets=False):
+    adt = link_dtype(f.shape[-1]) if emit_offsets else torch.int32
+    return torch.empty_like(f), torch.empty_like(f, dtype=adt)

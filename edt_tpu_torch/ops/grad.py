@@ -11,7 +11,10 @@
 Both kernels are in ``csrc/grad.cu`` (CUDA C++ for sm_90a, built by
 ``_build``, bound with ctypes). Each wrapper launches its kernel for CUDA
 tensors and takes the plain version only for CPU tensors, and counts its
-launches (``minplus_grad_launches``, ``binary_grad_scan_launches``).
+launches (``minplus_grad_launches``, ``binary_grad_scan_launches``; K3's in
+its long-row mode also ``minplus_grad_long_launches``). Each is also a
+``torch.library`` custom op: ``edt_tpu_torch::minplus_grad`` and
+``edt_tpu_torch::binary_grad_scan``.
 """
 
 from __future__ import annotations
@@ -24,16 +27,18 @@ import torch
 from edt_tpu_torch.ops import _build
 from edt_tpu_torch.ops.minplus import MAX_SMEM_BYTES, _check
 
-# Longest row K3 takes: each warp keeps its row's f32 accumulator in shared
-# memory, 4 B a voxel, and at the longest rows a block holds one warp,
-# within an H100 block's opt-in 232448 bytes. Longer axes raise. K4 keeps
-# nothing in shared memory and takes any length.
+# Longest row of K3's shared-memory mode: each warp keeps its row's f32
+# accumulator in shared memory, 4 B a voxel, and at the longest rows a
+# block holds one warp, within an H100 block's opt-in 232448 bytes. Longer
+# rows take its long-row mode (the accumulator in the output row). K4 keeps
+# nothing in shared memory and takes any length in its one mode.
 MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
 
 # csrc/grad.cu's link_kind codes
 _ABS_I32, _OFF_I16, _OFF_I32 = 0, 1, 2
 
 minplus_grad_launches = 0
+minplus_grad_long_launches = 0
 binary_grad_scan_launches = 0
 
 
@@ -110,10 +115,10 @@ def binary_grad_scan_plain(g, offsets, off_sent=None):
 def _kernels():
     lib = _build.load("grad")
     fns = (lib.edt_minplus_grad, lib.edt_binary_grad_scan)
-    for fn in fns:
+    for fn, mode in zip(fns, ([ctypes.c_int], [])):  # K3's long_rows flag
         fn.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, *mode, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fns
 
@@ -134,42 +139,46 @@ def _check_cuda(name, g, links, link_dtypes):
     return R, n
 
 
-def _launch(fn, name, g, links, kind, off_sent):
+def _launch(fn, name, g, links, kind, off_sent, *mode):
     out = torch.empty_like(g)
     R, n = g.shape
     err = fn(g.data_ptr(), links.data_ptr(), out.data_ptr(), R, n, kind,
              0 if off_sent is None else int(off_sent), int(off_sent is not None),
-             torch.cuda.current_stream(g.device).cuda_stream)
+             *mode, torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
 
 
-def minplus_grad(g, argj=None, offsets=None, off_sent=None):
+def minplus_grad(g, argj=None, offsets=None, off_sent=None, *,
+                 _long_rows=False):
     """df[r, j] = sum_i g[r, i] [link[r, i] == j]: the VJP of K2's argmin.
 
     g: (R, n) f32. Exactly one of ``argj`` (absolute int32 indices,
     negative = inert) and ``offsets`` (int16/int32 ``argj - i``;
     ``off_sent`` marks inert voxels). All C-contiguous on one device. CUDA
-    tensors run the K3 kernel; CPU tensors the plain version.
+    tensors run the K3 kernel (its long-row mode past ``MAX_AXIS``, or with
+    ``_long_rows``, which holds the two modes against each other); CPU
+    tensors the plain version.
     """
-    global minplus_grad_launches
+    global minplus_grad_launches, minplus_grad_long_launches
     _one_link_input(argj, offsets)
     if g.device.type == "cpu":
         return minplus_grad_plain(g, argj, offsets, off_sent)
     links = argj if offsets is None else offsets
     dtypes = (torch.int32,) if offsets is None else (torch.int16, torch.int32)
     R, n = _check_cuda("minplus_grad", g, links, dtypes)
-    if n > MAX_AXIS:
-        raise ValueError(f"rows of {n} exceed the kernel's {MAX_AXIS}")
     if R == 0 or n == 0:
         return torch.zeros_like(g)
     if offsets is None:
         kind, off_sent = _ABS_I32, None
     else:
         kind = _OFF_I16 if offsets.dtype == torch.int16 else _OFF_I32
-    out = _launch(_kernels()[0], "minplus_grad", g, links, kind, off_sent)
+    long_rows = _long_rows or n > MAX_AXIS
+    out = _launch(_kernels()[0], "minplus_grad", g, links, kind, off_sent,
+                  int(long_rows))
     minplus_grad_launches += 1
+    minplus_grad_long_launches += long_rows
     return out
 
 
@@ -191,3 +200,32 @@ def binary_grad_scan(g, offsets, off_sent=None):
     out = _launch(_kernels()[1], "binary_grad_scan", g, offsets, kind, off_sent)
     binary_grad_scan_launches += 1
     return out
+
+
+@torch.library.custom_op(
+    "edt_tpu_torch::minplus_grad", mutates_args=(),
+    schema="(Tensor g, Tensor? argj=None, Tensor? offsets=None, "
+           "int? off_sent=None) -> Tensor")
+def minplus_grad_op(g, argj=None, offsets=None, off_sent=None):
+    """K3 as a custom op: ``minplus_grad``, which launches the kernel on
+    CUDA tensors and runs the plain version on CPU tensors."""
+    return minplus_grad(g, argj, offsets, off_sent)
+
+
+@minplus_grad_op.register_fake
+def _minplus_grad_op_fake(g, argj=None, offsets=None, off_sent=None):
+    return torch.empty_like(g)
+
+
+@torch.library.custom_op(
+    "edt_tpu_torch::binary_grad_scan", mutates_args=(),
+    schema="(Tensor g, Tensor offsets, int? off_sent=None) -> Tensor")
+def binary_grad_scan_op(g, offsets, off_sent=None):
+    """K4 as a custom op: ``binary_grad_scan``, which launches the kernel on
+    CUDA tensors and runs the plain version on CPU tensors."""
+    return binary_grad_scan(g, offsets, off_sent)
+
+
+@binary_grad_scan_op.register_fake
+def _binary_grad_scan_op_fake(g, offsets, off_sent=None):
+    return torch.empty_like(g)

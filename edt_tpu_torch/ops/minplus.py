@@ -6,7 +6,10 @@ Counterpart of ``edt_tpu.ops.pallas_kernels.minplus_pallas`` with
 ctypes); ``minplus_walls_plain`` is its plain PyTorch version.
 
 ``minplus_walls`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors. ``launches`` counts the kernel launches.
+version only for CPU tensors. ``launches`` counts the kernel launches,
+``long_launches`` those in its long-row mode. Rows up to ``MAX_AXIS`` run
+the kernel's shared-memory mode, longer ones its long-row mode (the row
+read from device memory), so every length runs on the card.
 
 The same pair is registered as the ``torch.library`` custom op
 ``edt_tpu_torch::minplus_walls`` (``minplus_walls`` on every device, with a
@@ -24,16 +27,17 @@ import torch
 
 from edt_tpu_torch.ops import _build, core
 
-# Longest row the kernel takes: it stages one f32 row in shared memory,
-# and an H100 block may opt in to 232448 bytes, less the kernel's few
-# static bytes. Longer axes take the host fallback.
+# Longest row of the kernel's shared-memory mode: it stages one f32 row in
+# shared memory, and an H100 block may opt in to 232448 bytes, less the
+# kernel's few static bytes. Longer rows take its long-row mode.
 MAX_SMEM_BYTES = 232448
 MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
 
-# The plain version's (rows, n, n) cost tensor stays below this.
+# The plain versions' (rows, targets, n) cost tensors stay below this.
 PLAIN_COST_BYTES = 1 << 30
 
 launches = 0
+long_launches = 0
 
 
 def _check(name, t, dtype, shape, device):
@@ -45,38 +49,67 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def plain_chunks(R, n):
+    """(r0, r1, i0, i1) blocks of rows and targets whose (rows, targets, n)
+    f32 cost tensor stays under ``PLAIN_COST_BYTES``: whole rows while one
+    row's (n, n) fits, else one row at a time in blocks of targets (a
+    65536-voxel row's whole cost tensor would be 17 GB)."""
+    row_bytes = 4 * n * n
+    if row_bytes <= PLAIN_COST_BYTES:
+        rows, tgt = max(1, PLAIN_COST_BYTES // max(row_bytes, 1)), max(n, 1)
+    else:
+        rows, tgt = 1, max(1, PLAIN_COST_BYTES // (4 * n))
+    for r0 in range(0, R, rows):
+        for i0 in range(0, n, tgt):
+            yield r0, min(R, r0 + rows), i0, min(n, i0 + tgt)
+
+
+def quad_rows(i0, i1, n, w2, device):
+    """(i1 - i0, n) f32 w2 (i - j)^2, rounded as ``core._minplus_chunk``
+    forms it: (diff * diff) * w2."""
+    i = torch.arange(i0, i1, dtype=torch.float32, device=device)
+    j = torch.arange(n, dtype=torch.float32, device=device)
+    diff = i[:, None] - j[None, :]
+    return (diff * diff) * core.f32(w2)
+
+
 @functools.cache
 def _kernel():
     lib = _build.load("minplus")
     fn = lib.edt_minplus_walls
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def minplus_walls_plain(f, ss, se, w2, black_border, masked):
     """Plain PyTorch version of the kernel: brute-force unmasked min-plus
-    plus the wall parabolas (``core.border_envelopes_sq`` masked, the
-    whole-row border parabolas for binary). Background needs no zeroing:
-    it carries f == 0, and candidate j == i pins it to 0."""
-    n = f.shape[-1]
-    d = core.minplus_masked(
-        f, None, w2, row_chunk=max(1, PLAIN_COST_BYTES // (4 * n * n or 1)))
+    (``core._minplus_chunk``'s arithmetic over ``plain_chunks``) plus the
+    wall parabolas (``core.border_envelopes_sq`` masked, the whole-row
+    border parabolas for binary). Background needs no zeroing: it carries
+    f == 0, and candidate j == i pins it to 0."""
+    R, n = f.shape
+    d = torch.empty_like(f)
+    for r0, r1, i0, i1 in plain_chunks(R, n):
+        q = quad_rows(i0, i1, n, w2, f.device)
+        d[r0:r1, i0:i1] = (f[r0:r1, None, :] + q).amin(dim=-1)
     if masked:
         return core.border_envelopes_sq(d, ss, se, n, w2, black_border)
     return core.binary_border_sq(d, n, w2) if black_border else d
 
 
-def minplus_walls(f, ss, se, w2, black_border, masked):
+def minplus_walls(f, ss, se, w2, black_border, masked, *, _long_rows=False):
     """d[r, i] = min_j f[r, j] + w2 (i - j)^2, then the walls.
 
     f: (R, n) f32; ss, se: (R, n) int32 segment bounds when ``masked``
     (multi-label), ignored otherwise (binary). All C-contiguous on one
-    device. CUDA tensors run the K1 kernel; CPU tensors the plain version.
+    device. CUDA tensors run the K1 kernel (its long-row mode past
+    ``MAX_AXIS``, or with ``_long_rows``, which holds the two modes against
+    each other); CPU tensors the plain version.
     """
-    global launches
+    global launches, long_launches
     if f.device.type == "cpu":
         return minplus_walls_plain(f, ss, se, w2, black_border, masked)
     if f.device.type != "cuda":
@@ -88,21 +121,21 @@ def minplus_walls(f, ss, se, w2, black_border, masked):
     if masked:
         _check("ss", ss, torch.int32, (R, n), f.device)
         _check("se", se, torch.int32, (R, n), f.device)
-    if n > MAX_AXIS:
-        raise ValueError(f"rows of {n} exceed the kernel's {MAX_AXIS}")
     if R >= 2 ** 31:
         raise ValueError(f"{R} rows exceed one launch grid")
     out = torch.empty_like(f)
     if R == 0 or n == 0:
         return out
-    fn = _kernel()
-    err = fn(f.data_ptr(), ss.data_ptr() if masked else None,
-             se.data_ptr() if masked else None, out.data_ptr(), R, n,
-             core.f32(w2), int(masked), int(black_border),
-             torch.cuda.current_stream(f.device).cuda_stream)
+    long_rows = _long_rows or n > MAX_AXIS
+    err = _kernel()(f.data_ptr(), ss.data_ptr() if masked else None,
+                    se.data_ptr() if masked else None, out.data_ptr(), R, n,
+                    core.f32(w2), int(masked), int(black_border),
+                    int(long_rows),
+                    torch.cuda.current_stream(f.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"minplus_walls kernel launch failed: cudaError {err}")
     launches += 1
+    long_launches += long_rows
     return out
 
 

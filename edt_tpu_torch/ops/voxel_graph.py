@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from edt_tpu_torch.ops import compose, minplus
+from edt_tpu_torch.ops import compose
 
 _X, _Y, _Z = 0, 2, 4  # bit shifts of the +x, +y, +z edges
 
@@ -107,17 +107,6 @@ def doubled_3d_torch(fg, g, black_border, zero_tail=(True, True, True)):
     return D
 
 
-def _check_ceiling(shape):
-    """The doubled volume's axes must fit K1's rows."""
-    longest = 2 * max(shape)
-    if longest > minplus.MAX_AXIS:
-        raise ValueError(
-            f"voxel_graph: the doubled axis of {longest} exceeds K1's "
-            f"ceiling of {minplus.MAX_AXIS} (minplus.MAX_AXIS); longer "
-            "axes need K1's tiled long-row mode or the sharded transform "
-            "(ROADMAP B5, A6)")
-
-
 def _edtsq_doubled(fg, graph, half_anisotropy, black_border):
     """Doubling, binary EDT at half pitch with the default axis order, and
     the even-site subsample, all on fg's device."""
@@ -138,7 +127,6 @@ def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False):
     if labels.dim() != 3:
         raise ValueError(
             "edtsq_voxel_graph_torch is 3-D; use the NumPy API for 2-D")
-    _check_ceiling(labels.shape)
     fg = labels > 0 if labels.is_floating_point() else labels != 0
     half = [float(np.float32(a) / np.float32(2.0))
             for a in np.asarray(anisotropy, np.float32).reshape(3)]
@@ -173,7 +161,6 @@ def edtsq_voxel_graph(data, graph, anisotropy, black_border, arr_order,
         data = np.transpose(data, perm)
         graph = np.transpose(graph, perm)
         anisotropy = anisotropy[::-1]
-    _check_ceiling(data.shape)
 
     # The reference's foreground test is labels > 0 on the raw values;
     # its Cython layer reads signed integers as unsigned, so only floats

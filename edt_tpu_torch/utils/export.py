@@ -7,11 +7,23 @@ serialized to bytes and called back without retracing.
     run = load(data)            # serving side
     dt = run(labels)            # labels: a torch tensor, see export_transform
 
-K1 is recorded as the custom op ``edt_tpu_torch::minplus_walls``, so
-loading a program needs ``edt_tpu_torch`` imported in the serving process
-to register the op. That is where the port differs from ``jax.export``,
+Every kernel is a ``torch.library`` custom op (K1
+``edt_tpu_torch::minplus_walls``; K2 to K6 ``::minplus_argmin``,
+``::minplus_grad``, ``::binary_grad_scan``, ``::softmin``,
+``::softmin_grad``), so a program records each pass as one op node and
+loading it needs ``edt_tpu_torch`` imported in the serving process to
+register the ops. That is where the port differs from ``jax.export``,
 whose artifacts run with no import of the exporting package. The
-differentiable path does not export yet: K2 to K6 are not custom ops.
+differentiable transforms export with their gradient, as ``jax.grad`` of
+them does there:
+
+    def gfn(labels, occ):
+        occ = occ.detach().requires_grad_()
+        with torch.enable_grad():
+            out = soft.multilabel_edtsq(labels, occ, (6, 6, 30), True)
+            return torch.autograd.grad(out.sum(), occ)[0]
+
+    run = load(export_fn(gfn, labels, occ))
 """
 
 from __future__ import annotations
@@ -38,10 +50,17 @@ def export_fn(fn, *example_args):
     """``torch.export.export`` of ``fn`` for the shapes, dtypes and device
     of the example tensors; returns an ``ExportedProgram``.
 
+    ``fn`` may call ``torch.autograd.grad``: the backward of each pass
+    (its ``autograd.Function``) then runs while the program is traced and
+    its kernels' ops are recorded beside the forward's. That needs the
+    non-strict export (``strict=False``), which runs ``fn`` as Python on
+    fake tensors; the strict one traces with TorchDynamo, which refuses
+    ``torch.autograd.grad`` in the graph.
+
     The program keeps no example inputs: ``torch.export.save`` would write
     them beside the graph, a whole volume each (537 MB for a 512^3 uint32
     one)."""
-    program = torch.export.export(_Fn(fn), tuple(example_args))
+    program = torch.export.export(_Fn(fn), tuple(example_args), strict=False)
     program.example_inputs = None
     return program
 

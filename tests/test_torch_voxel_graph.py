@@ -208,14 +208,24 @@ def test_device_native_transform_matches_jax():
 
 
 def test_past_the_ceiling_raises(monkeypatch):
+    """A doubled axis past K1's shared-memory ceiling no longer raises: K1
+    takes such rows in its long-row mode, so both entry points run at any
+    length, as the JAX package's do on one device. With the ceiling patched
+    down to 20, the doubled axes of 20 and 22 give the JAX package's bits.
+    (The long-row mode itself runs only on a card: tests/test_torch_long_rows.py.)"""
+    import jax.numpy as jnp
+
     monkeypatch.setattr(minplus, "MAX_AXIS", 20)
     labels, graph = _random_case((6, 10, 11), seed=10)
-    with pytest.raises(ValueError, match="ceiling of 20"):
-        edt_tpu_torch.edtsq(labels, voxel_graph=graph, device="cpu")
-    with pytest.raises(ValueError, match="ceiling of 20"):
-        vg.edtsq_voxel_graph_torch(torch.from_numpy(labels),
-                                   torch.from_numpy(graph), (1, 1, 1))
-    # a doubled axis at the ceiling still runs
+    assert_same(edt_tpu_torch.edtsq(labels, voxel_graph=graph, device="cpu"),
+                edt_tpu.edtsq(labels, voxel_graph=graph))
+    ref = jvg.edtsq_voxel_graph_jnp(jnp.asarray(labels), jnp.asarray(graph),
+                                    (1.0, 1.0, 1.0), False)
+    assert_same(vg.edtsq_voxel_graph_torch(torch.from_numpy(labels),
+                                           torch.from_numpy(graph),
+                                           (1, 1, 1)).numpy(),
+                np.asarray(ref))
+    # a doubled axis at the ceiling runs as before
     assert_same(edt_tpu_torch.edtsq(labels[:, :, :10], voxel_graph=graph[:, :, :10],
                                     device="cpu"),
                 edt_tpu.edtsq(labels[:, :, :10], voxel_graph=graph[:, :, :10]))
