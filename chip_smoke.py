@@ -45,7 +45,18 @@ paths:
   (32768, 8, 2) against the host-doubled plain reference; and the
   gradients of the 512^3 bench fwd+bwd (K2, K3, K4) and the 256^3
   softmin cell (K5, K6) exported with ``export_fn`` (every kernel a
-  custom op), saved, loaded and bit-exact to the live gradient.
+  custom op), saved, loaded and bit-exact to the live gradient;
+- slice 10 (phase ``sharded``): four gloo ranks spawned on the one card
+  (NCCL takes one rank a card) run ``edtsq_sharded_auto`` and
+  ``sdf_sharded`` on the 512^3 volume and on 509 x 512 x 510, both
+  black_border, ``edtsq_voxel_graph_sharded`` at 256^3, and bench.py's
+  fwd+bwd and the 256^3 softmin fwd+bwd with ``axis_name``, each rank's
+  result bit-exact (gradients within tolerance) to its slab of the
+  single-card call, every kernel's launches checked on every rank, each
+  kernel alone on rank 0's first call; then the 512^3 forward and fwd+bwd
+  in one NCCL rank, and over min(4, cards) NCCL ranks where there are
+  more cards. The gloo ranks share one card and stage their collectives
+  through the host, so their times are no scaling figure.
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -105,6 +116,15 @@ def cuda_ms(fn, reps, warmup=1):
     return statistics.median(times), times
 
 
+def bit_equal(got, ref):
+    """Tensors of one dtype on one device with equal values (a NaN is
+    equal to nothing): the checks below pass them without copying them to
+    the host, where comparing whole volumes takes seconds."""
+    return (isinstance(got, torch.Tensor) and isinstance(ref, torch.Tensor)
+            and got.device == ref.device and got.dtype == ref.dtype
+            and torch.equal(got, ref))
+
+
 class Exact:
     """Bit-exact comparisons: same INF pattern, equal finite values."""
 
@@ -113,6 +133,8 @@ class Exact:
         self.failures = []
 
     def check(self, name, got, ref):
+        if bit_equal(got, ref):
+            return
         got = torch.as_tensor(got).to("cpu")
         ref = torch.as_tensor(ref).to("cpu")
         if got.shape != ref.shape:
@@ -144,6 +166,8 @@ class Close(Exact):
         self.rtol, self.atol, self.atol_rel = rtol, atol, atol_rel
 
     def check(self, name, got, ref):
+        if bit_equal(got, ref):
+            return
         got = torch.as_tensor(got).to("cpu")
         ref = torch.as_tensor(ref).to("cpu")
         if got.shape != ref.shape:
@@ -1266,14 +1290,15 @@ def phase_grad_kernel_cases(exact, close3, close4, dev):
           f"on one-source rows of {n + 1} in their long-row modes")
 
 
-def fwd_bwd(labels, occ, binary_occupancy, barrier, kernels=None):
+def fwd_bwd(labels, occ, binary_occupancy, barrier, kernels=None,
+            axis_name=None):
     """bench.py's step on the port: multilabel_edtsq and the gradient of
-    its sum w.r.t. the occupancy."""
+    its sum w.r.t. the occupancy (with ``axis_name``, of a rank's slab)."""
     from edt_tpu_torch.models import soft
 
     occ = occ.detach().requires_grad_()
     out = soft.multilabel_edtsq(labels, occ, ANISO, black_border=True,
-                                barrier=barrier,
+                                barrier=barrier, axis_name=axis_name,
                                 binary_occupancy=binary_occupancy,
                                 kernels=kernels or soft.KERNELS)
     (g,) = torch.autograd.grad(out.sum(), occ)
@@ -2759,6 +2784,417 @@ def phase_export_grad(exact, dev):
     exact.raise_if_failed("export_grad")
 
 
+# ---------------- slice 10: the sharded transforms and soft passes
+
+
+SHARD_RANKS = 4  # gloo ranks sharing the one card
+SHARD_ODD = (509, 512, 510)  # divides no axis by SHARD_RANKS
+SHARD_TIMEOUT_S = 600
+# (K, module of ops, wrapper, plain version, name, source, TPU kernel line)
+SHARD_KERNELS = (
+    ("K1", "minplus", "minplus_walls", "minplus_walls_plain",
+     "minplus_walls", "minplus.cu", 311),
+    ("K2", "argmin", "minplus_argmin", "minplus_argmin_plain",
+     "minplus_argmin", "argmin.cu", 1275),
+    ("K3", "grad", "minplus_grad", "minplus_grad_plain", "minplus_grad",
+     "grad.cu", 1616),
+    ("K4", "grad", "binary_grad_scan", "binary_grad_scan_plain",
+     "binary_grad_scan", "grad.cu", 1751),
+    ("K5", "softmin", "softmin", "softmin_plain", "softmin", "softmin.cu",
+     2103),
+    ("K6", "softmin", "softmin_grad", "softmin_grad_plain", "softmin_grad",
+     "softmin.cu", 2346))
+
+
+def all_launches():
+    """The launch counts of K1 to K6."""
+    from edt_tpu_torch.ops import minplus, softmin
+
+    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6"),
+                    (minplus.launches, *grad_launches(), softmin.launches,
+                     softmin.grad_launches)))
+
+
+def zero_all_launches():
+    from edt_tpu_torch.ops import minplus
+
+    minplus.launches = 0
+    zero_grad_launches()
+    zero_soft_launches()
+
+
+def counted(report, case, expect, fn):
+    """fn() with every kernel's count set to 0 just before and checked just
+    after: ``expect`` maps K to its launches on this rank, the rest 0."""
+    zero_all_launches()
+    out = fn()
+    got = all_launches()
+    want = {k: expect.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"{case}: launches {got}, expected {want}")
+    for k, n in got.items():
+        report["launches"][k] = report["launches"].get(k, 0) + n
+    return out
+
+
+def slab_of(ref, out, rank, world):
+    """This rank's slab of a whole-volume ``ref``, laid out as the DTensor
+    ``out``'s local tensor (its Shard dim, DTensor's uneven chunks)."""
+    dim = out.placements[0].dim
+    c = -(-ref.shape[dim] // world)
+    start = min(rank * c, ref.shape[dim])
+    return ref.narrow(dim, start, out.to_local().shape[dim])
+
+
+class Capture:
+    """Within the block, records the first call of each kernel wrapper
+    (the custom ops call the wrappers by their module names)."""
+
+    def __init__(self):
+        self.calls, self.saved = {}, []
+
+    def __enter__(self):
+        import importlib
+
+        for k, mod, attr, *_ in SHARD_KERNELS:
+            m = importlib.import_module(f"edt_tpu_torch.ops.{mod}")
+            orig = getattr(m, attr)
+
+            def wrap(*a, _k=k, _orig=orig, **kw):
+                self.calls.setdefault(_k, (a, kw))
+                return _orig(*a, **kw)
+
+            self.saved.append((m, attr, orig))
+            setattr(m, attr, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for m, attr, orig in self.saved:
+            setattr(m, attr, orig)
+
+
+def shard_kernel_entry(k, call, exps_per_s):
+    """One kernel alone on its captured call from the sharded path: ms,
+    plain ms, max |err| against the plain version, bound and library ms."""
+    import importlib
+    import inspect
+
+    from edt_tpu_torch.ops import argmin
+
+    _, mod, attr, plain_attr, name, src, line = next(
+        e for e in SHARD_KERNELS if e[0] == k)
+    m = importlib.import_module(f"edt_tpu_torch.ops.{mod}")
+    a, kw = call
+    bound = inspect.signature(getattr(m, plain_attr)).bind(*a, **kw)
+    bound.apply_defaults()
+    x = bound.arguments  # the call's arguments by name
+    kern = lambda: getattr(m, attr)(*a, **kw)  # noqa: E731
+    plain = lambda: getattr(m, plain_attr)(*a, **kw)  # noqa: E731
+    chk = {"K1": Exact(), "K2": Exact(), "K3": Close(), "K4": Close(),
+           "K5": Close(1e-5, atol=1e-4),
+           "K6": Close(1e-4, atol=0.0, atol_rel=1e-4)}[k]
+    got, ref = kern(), plain()
+    if k == "K6":
+        chk.check("K6 df", got[0], ref[0])
+        chk.check_sum("K6 sum(g e)", (x["g"] * got[1]).sum(),
+                      (x["g"] * ref[1]).sum(), 1e-3)
+    else:
+        for i, (y, r) in enumerate(zip(*(t if isinstance(t, tuple) else (t,)
+                                         for t in (got, ref)))):
+            chk.check(f"{k} output {i}", y, r)
+    chk.raise_if_failed(f"{k} on the sharded path")
+    del got, ref
+    ms, _ = cuda_ms(kern, reps=10, warmup=2)
+    pms, _ = cuda_ms(plain, reps=2)
+    lib = None
+    f = x.get("f", x.get("g"))
+    if k == "K1":
+        visited = k1_search(*x.values())[1]
+        bms, by = k1_bound_ms(*x.values(), visited)
+    elif k == "K2":
+        walls = (None if x["walls"] is None
+                 else argmin.walls_from_counts(x["walls"], x["w2"]))
+        cands = k2_search_work(f, walls, x["w2"])[0]
+        bms, by = bound_ms(12 * f.numel(), 4 * cands)
+    elif k == "K3":
+        o, sent = x["offsets"], x["off_sent"]
+        live = o != sent
+        idx = torch.arange(f.shape[1], device=f.device)
+        links = torch.where(live, idx + o.to(torch.int64), idx)
+        gm = torch.where(live, f, 0.0)
+        lib, _ = cuda_ms(lambda: torch.zeros_like(f).scatter_add_(1, links, gm),
+                         reps=10, warmup=2)
+        bms, by = bound_ms(10 * f.numel(), int(live.sum()))
+    elif k == "K4":
+        bms, by = bound_ms(10 * f.numel(), 2 * f.numel())
+    elif k == "K5":
+        (bms, by, _), *_ = k5_bound_ms(f, x["w2"], x["t"], exps_per_s)
+    else:
+        (bms, by, _), *_ = k6_bound_ms(x["f"], x["d"], x["w2"], x["t"],
+                                       exps_per_s)
+    return {"name": name, "route": "cuda", "source": SRC + src,
+            "replaces": REP + str(line), "max_abs_err": chk.max_abs_err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "shape": list(f.shape)}
+
+
+def sharded_cases(rank, world, full, dev):
+    """One rank's cases (every rank runs them in step). ``full``: every
+    case; else the 512^3 forward and the bench fwd+bwd. Each holds this
+    rank's slab against the same slab of the single-card call, bit-exact
+    (gradients within tolerance), with every kernel's launches on this
+    rank checked; then times, and on rank 0 each kernel alone on its first
+    call of the cases."""
+    import torch.distributed as dist
+
+    from edt_tpu_torch.parallel import sharded
+
+    mesh = sharded.default_mesh(device=dev)
+    group = mesh.get_group("sp")
+    report = {"rank": rank, "launches": {}, "ms": {}, "s": {}}
+    lt = torch.from_numpy(make_labels(np.random.default_rng(42), FULL)
+                          .view(np.int32)).to(dev)
+    with Capture() as cap:
+        ml, sm = checked_cases(report, rank, world, full, dev, mesh, lt)
+
+    # times on every rank, all ranks in step (the cases warmed them up)
+    t = time.perf_counter()
+    f = torch.rand((FULL // world, FULL, FULL), device=dev)
+    rot = lambda: sharded.all_to_all(  # noqa: E731
+        sharded.all_to_all(f, group, 2, 0), group, 0, 2)
+    report["ms"][f"rotation there and back, {tuple(f.shape)} f32"] = \
+        cuda_ms(rot, reps=2, warmup=0)[0]
+    del f
+    report["ms"][f"edtsq_sharded_auto {FULL}^3"] = cuda_ms(
+        lambda: sharded.edtsq_sharded_auto(lt, ANISO, True, mesh=mesh),
+        reps=2, warmup=0)[0]
+    report["ms"][f"multilabel_edtsq fwd+bwd {FULL}^3"] = cuda_ms(
+        ml, reps=2, warmup=0)[0]
+    if full:
+        report["ms"][f"soft_edtsq fwd+bwd {SOFT_FULL}^3"] = cuda_ms(
+            sm, reps=2, warmup=0)[0]
+    report["s"]["times"] = time.perf_counter() - t
+
+    if full:
+        # each kernel alone on rank 0 while the other ranks wait
+        t = time.perf_counter()
+        if rank == 0:
+            exps_per_s = sfu_exps_per_s()
+            with torch.no_grad():
+                report["kernels"] = [shard_kernel_entry(k, call, exps_per_s)
+                                     for k, call in sorted(cap.calls.items())]
+        del cap
+        dist.barrier(group)
+        report["s"]["kernels alone"] = time.perf_counter() - t
+    return report
+
+
+def checked_cases(report, rank, world, full, dev, mesh, lt):
+    """The cases of ``sharded_cases``, each counted and checked; returns
+    the fwd+bwd calls (multilabel, softmin) to time."""
+    import torch.distributed as dist
+
+    from edt_tpu_torch import api
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import compose
+    from edt_tpu_torch.ops import voxel_graph as vg
+    from edt_tpu_torch.parallel import sharded
+
+    group = mesh.get_group("sp")
+    exact, close = Exact(), Close()
+    close5, close6 = Close(1e-5, atol=1e-4), Close(1e-4, atol=0.0,
+                                                     atol_rel=1e-4)
+    order = api._sorted_axis_order(np.asarray(ANISO, np.float32))
+    t = time.perf_counter()
+
+    # the forward transforms: K1 twice a rank an edtsq, four times an sdf
+    vols = [(f"{FULL}^3", lt)]
+    if full:
+        vols.append(("x".join(map(str, SHARD_ODD)),
+                     lt[tuple(slice(0, s) for s in SHARD_ODD)].contiguous()))
+    for vname, vol in vols:
+        for bb in ((True, False) if full else (True,)):
+            case = f"edtsq_sharded_auto {vname} bb={bb}"
+            out = counted(report, case, {"K1": 2},
+                          lambda: sharded.edtsq_sharded_auto(vol, ANISO, bb,
+                                                             mesh=mesh))
+            ref = compose.edtsq(vol, ANISO, bb, axis_order=order)
+            exact.check(case, out.to_local(), slab_of(ref, out, rank, world))
+            if vol is lt and bb and dist.get_backend(group) == "nccl":
+                # gloo's functional collectives on CUDA tensors crash in
+                # torch 2.11 (the all-gather of full_tensor); NCCL only
+                exact.check(case + " (full_tensor)", out.full_tensor(), ref)
+            del out, ref
+            if not full:
+                continue
+            case = f"sdf_sharded {vname} bb={bb}"
+            out = counted(report, case, {"K1": 4},
+                          lambda: sharded.sdf_sharded(vol, ANISO, bb,
+                                                      mesh=mesh))
+            ref = compose.sdf(vol, ANISO, bb)
+            exact.check(case, out.to_local(), slab_of(ref, out, rank, world))
+            del out, ref
+    exact.raise_if_failed(f"rank {rank}: sharded transforms")
+    report["s"]["transforms"] = time.perf_counter() - t
+
+    if full:
+        t = time.perf_counter()
+        S = VG_FULL
+        data = make_labels(np.random.default_rng(11), S)
+        vlt = torch.from_numpy(data.view(np.int32)).to(dev)
+        vgt = torch.from_numpy(vg_graph(np.random.default_rng(12),
+                                        data.shape)).to(dev)
+        for bb in (True, False):
+            case = f"edtsq_voxel_graph_sharded {S}^3 bb={bb}"
+            out = counted(report, case, {"K1": 2},
+                          lambda: sharded.edtsq_voxel_graph_sharded(
+                              vlt, vgt, ANISO, bb, mesh=mesh))
+            ref = vg.edtsq_voxel_graph_torch(vlt, vgt, ANISO, bb)
+            exact.check(case, out.to_local(), slab_of(ref, out, rank, world))
+            del out, ref
+        exact.raise_if_failed(f"rank {rank}: sharded voxel graph")
+        del vlt, vgt
+        report["s"]["voxel graph"] = time.perf_counter() - t
+
+    # bench.py's fwd+bwd with axis_name, on this rank's slab
+    t = time.perf_counter()
+    c = FULL // world
+    sl = slice(rank * c, (rank + 1) * c)
+    occ = (lt != 0).to(torch.float32)
+    barrier = float(np.sum((np.asarray(ANISO) * FULL) ** 2))
+    ml = lambda: fwd_bwd(lt[sl], occ[sl], True, barrier, axis_name=group)  # noqa: E731
+    out, g = counted(report, "multilabel_edtsq fwd+bwd",
+                     {"K2": 2, "K3": 2, "K4": 1}, ml)
+    ref, rg = fwd_bwd(lt, occ, True, barrier)
+    for name, chk, mine, whole in (("forward", exact, out, ref),
+                                   ("gradient", close, g, rg)):
+        parts = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(parts, mine.contiguous(), group=group)
+        chk.check(f"multilabel_edtsq {name} (gathered)", torch.cat(parts),
+                  whole)
+        del parts
+    del out, g, ref, rg
+    exact.raise_if_failed(f"rank {rank}: sharded multilabel forward")
+    close.raise_if_failed(f"rank {rank}: sharded multilabel gradient")
+    report["s"]["multilabel fwd+bwd"] = time.perf_counter() - t
+
+    sm = None
+    if full:
+        t = time.perf_counter()
+        S = SOFT_FULL
+        socc = torch.from_numpy((np.random.default_rng(42).random((S,) * 3)
+                                 > 0.5).astype(np.float32)).to(dev)
+        sbar = float(3 * S ** 2)
+        s_sl = slice(rank * (S // world), (rank + 1) * (S // world))
+        fn = lambda o, k, a=None: soft.soft_edtsq(  # noqa: E731
+            o, (1.0, 1.0, 1.0), True, sbar, SOFT_T, a, kernels=k)
+        sm = lambda: value_and_grad(  # noqa: E731
+            lambda o, k: fn(o, k, group), socc[s_sl], soft.KERNELS)
+        out, g = counted(report, f"soft_edtsq t={SOFT_T} {S}^3 fwd+bwd",
+                         {"K5": 3, "K6": 3}, sm)
+        ref, rg = value_and_grad(fn, socc, soft.KERNELS)
+        close5.check("soft_edtsq forward", out, ref[s_sl])
+        close6.check("soft_edtsq gradient", g, rg[s_sl])
+        del out, g, ref, rg
+        close5.raise_if_failed(f"rank {rank}: sharded soft_edtsq forward")
+        close6.raise_if_failed(f"rank {rank}: sharded soft_edtsq gradient")
+        report["s"]["softmin fwd+bwd"] = time.perf_counter() - t
+    return ml, sm
+
+
+def sharded_rank(rank, world, backend, rendezvous, outdir, full):
+    """A spawned rank: ``backend`` ("gloo": every rank on card 0; "nccl":
+    rank r on card r), the cases, its report written as JSON."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world)
+    try:
+        report = sharded_cases(rank, world, full, dev)
+        with open(f"{outdir}/rank{rank}.json", "w") as fh:
+            json.dump(report, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world, backend, full):
+    """Spawn ``world`` ranks running ``sharded_rank``; their reports. Any
+    rank's failure (or the time limit) fails the call."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(sharded_rank, args=(world, backend,
+                                           f"{tmp}/rendezvous", tmp, full),
+                       nprocs=world, join=False)
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{backend} ranks still running after "
+                                       f"{SHARD_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        reports = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as fh:
+                reports.append(json.load(fh))
+    return reports
+
+
+def phase_sharded(kernels, dev):
+    """The sharded transforms and soft passes over torch.distributed:
+    four gloo ranks on the one card (bench.py's 512^3 volume and a shape
+    that divides no axis by 4, the 256^3 voxel graph, bench.py's fwd+bwd
+    with axis_name, the 256^3 softmin cell), then the 512^3 forward and
+    fwd+bwd in one NCCL rank, and over min(4, cards) NCCL ranks where
+    there are more cards."""
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    runs = [("gloo", SHARD_RANKS, True), ("nccl", 1, False)]
+    if torch.cuda.device_count() > 1:
+        runs.append(("nccl", min(4, torch.cuda.device_count()), False))
+    for backend, world, full in runs:
+        t = time.perf_counter()
+        reports = spawn_ranks(world, backend, full)
+        label = f"{world} {backend} rank{'s' if world > 1 else ''}"
+        print(f"sharded, {label}: every case bit-exact to the single-card "
+              f"call (gradients within tolerance), launches checked on every "
+              f"rank; {time.perf_counter() - t:.1f} s")
+        note = ("ranks share one card and stage their collectives through "
+                "the host: no scaling figure" if backend == "gloo" else
+                "one card a rank")
+        for rep in reports:
+            times = ", ".join(f"{k} {v:.2f} ms" for k, v in rep["ms"].items())
+            walls = ", ".join(f"{k} {v:.1f} s" for k, v in rep["s"].items())
+            print(f"  rank {rep['rank']} ({smi}; {note}): launches "
+                  f"{rep['launches']}; {times}; wall time of its cases: "
+                  f"{walls}")
+        if backend != "gloo":
+            continue
+        for e in reports[0]["kernels"]:
+            k = next(x[0] for x in SHARD_KERNELS if x[4] == e["name"])
+            launches = sum(rep["launches"].get(k, 0) for rep in reports)
+            shape = e.pop("shape")
+            print(f"  {k} alone on rank 0's first sharded call {tuple(shape)}"
+                  f": {e['ms']:.3f} ms, plain {e['plain_ms']:.1f} ms, bound "
+                  f"{e['bound_ms']:.3f} ms ({e['bound_by']})"
+                  + (f", library scatter_add_ {e['library_ms']:.3f} ms"
+                     if e["library_ms"] else "")
+                  + f"; {launches} launches over the {world} ranks")
+            kernels.append(dict(e, name=f"{e['name']} (sharded, {world} "
+                                f"gloo ranks on one card)",
+                                launches=launches))
+
+
 def main(only=()) -> int:
     """Every phase; with ``only`` (command-line words), the build and the
     phases whose names contain one of them, and no result lines."""
@@ -2824,7 +3260,9 @@ def main(only=()) -> int:
                                   Close(1e-4, atol=0.0, atol_rel=1e-4),
                                   kernels, dev)),
               ("export_grad: exported gradients",
-               lambda: phase_export_grad(Exact(), dev))]
+               lambda: phase_export_grad(Exact(), dev)),
+              ("sharded: torch.distributed ranks",
+               lambda: phase_sharded(kernels, dev))]
     if only:
         phases = [(name, fn) for name, fn in phases if name == "build"
                   or any(w.lower() in name.lower() for w in only)]

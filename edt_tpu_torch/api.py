@@ -9,6 +9,13 @@ CUDA device and no ``device=`` every entry point raises. Axes longer than
 the device path takes fall back to the exact host implementation, as the
 JAX API's do past its device limits, except under ``voxel_graph=``, which
 has no host path there either and runs on the device at any length.
+
+Unlike the JAX API, this one never shards a volume on its own (and reads
+no ``EDT_TPU_SHARD_MIN_VOXELS``): JAX shards only where one process
+addresses every device, and a torch process drives one card, which is
+JAX's multi-process case, where volumes go through the sharded functions
+explicitly. Here they are ``edt_tpu_torch.parallel``'s, called by every
+rank of a process group; ``counters.sharded_dispatches`` stays 0.
 """
 
 from __future__ import annotations

@@ -22,6 +22,14 @@ backward, which recomputes the softmax weights from them. Walls (black
 borders, label boundaries) blend in with -t logaddexp(-d/t, -walls/t), and
 ``binary_heights`` has no effect.
 
+``axis_name``, a ``torch.distributed`` process group, makes the input a
+rank's slab of a 3-D volume sharded along axis 0 over that group (every
+rank calls the function, as under the JAX package's ``shard_map``): the
+axis-0 pass, at its own place in the ascending-pitch order, runs between
+two rotations (``parallel.sharded.rotate``, whose gradient is the reverse
+rotation), so sharded and single-card passes compose identically. Every
+rank's slab has the same shape, with axis 2 a multiple of the rank count.
+
 ``multilabel_edtsq`` is the wall-faithful multi-label form: labels define
 the label-boundary walls (integer wall counts, clamped in with ties to the
 candidate at t = 0), and its forward at t = 0 equals the hard ``edtsq``
@@ -41,11 +49,13 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from edt_tpu_torch import api
 from edt_tpu_torch.ops import argmin, core, grad
 from edt_tpu_torch.ops import softmin as soft_ops
 from edt_tpu_torch.ops.wall_sentinels import WALL_SENT16, WALL_SENT32
+from edt_tpu_torch.parallel.sharded import all_to_all, rotate
 
 F32 = torch.float32
 INF = float("inf")
@@ -289,28 +299,34 @@ def _soft_pass(f, w, black_border, temperature=0.0, binary_heights=False,
 
 
 def _passes(f, anis, black_border, temperature, binary_heights, kernels,
-            lead=0):
+            lead=0, axis_name=None):
     """The passes of ``edtsq_from_heights`` over the axes after the first
     ``lead`` of f, in ascending-pitch order; the leading axes ride in the
-    rows of every pass."""
+    rows of every pass. With ``axis_name`` the axis-0 pass runs rotated."""
     for step, ax in enumerate(_pass_order(anis)):
         a = ax + lead
+        rotated = axis_name is not None and ax == 0
+        if rotated:
+            f = rotate(f, axis_name, 2, 0)
         f = _soft_pass(f.movedim(a, -1).contiguous(), float(anis[ax]),
                        black_border, temperature,
                        binary_heights=binary_heights and step == 0,
                        kernels=kernels).movedim(-1, a)
+        if rotated:
+            f = rotate(f, axis_name, 0, 2)
     return f
 
 
-def _single_device(axis_name):
-    """The sharded passes (``axis_name``, the JAX package's mesh axis of a
-    volume sharded along axis 0) are not ported yet: ROADMAP.md, Queue A
-    item 6. The argument keeps its JAX position, so positional calls bind
-    as they do there."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: the sharded soft passes are not ported "
-            "yet (ROADMAP.md, Queue A item 6)")
+def _check_axis_name(axis_name, nd):
+    """``axis_name`` is None (one device) or the process group over which
+    axis 0 of a 3-D volume is sharded."""
+    if axis_name is None:
+        return
+    if nd != 3:
+        raise ValueError("sharded soft EDT requires a 3-D volume")
+    if not isinstance(axis_name, dist.ProcessGroup):
+        raise TypeError(f"axis_name must be a torch.distributed ProcessGroup "
+                        f"(e.g. mesh.get_group('sp')), got {axis_name!r}")
 
 
 def edtsq_from_heights(h, anisotropy, black_border=False, temperature=0.0,
@@ -324,13 +340,14 @@ def edtsq_from_heights(h, anisotropy, black_border=False, temperature=0.0,
     binary_heights: the caller's promise that h takes exactly two values
     {0, B}; at temperature 0 the first pass then runs the closed form with
     the same values, argmins and gradients (silently wrong otherwise).
-    axis_name must be None (single device).
+    axis_name: None, or the process group over which axis 0 is sharded,
+    h then being this rank's slab (module doc).
     """
-    _single_device(axis_name)
     f = _as_tensor(h, _resolve_device([h], device)).to(F32)
+    _check_axis_name(axis_name, f.dim())
     anis = np.asarray(anisotropy, np.float32).reshape(f.dim())
     return _passes(f, anis, black_border, temperature, binary_heights,
-                   kernels)
+                   kernels, axis_name=axis_name)
 
 
 def default_barrier(shape, anisotropy) -> float:
@@ -350,16 +367,15 @@ def soft_edtsq(occupancy, anisotropy, black_border=False, barrier=None,
     """Squared EDT of a soft occupancy map (1 = foreground, 0 =
     background), differentiable w.r.t. occupancy. binary_occupancy
     promises values in {0, 1}: at temperature 0 the first pass then runs
-    the closed form. axis_name must be None (single device)."""
-    _single_device(axis_name)
+    the closed form. axis_name as in ``edtsq_from_heights``; the default
+    barrier then comes from the slab's shape, as in the JAX package."""
     dev = _resolve_device([occupancy, barrier], device)
     occ = _as_tensor(occupancy, dev)
     if barrier is None:
         barrier = default_barrier(tuple(occ.shape), anisotropy)
     return edtsq_from_heights(_heights(barrier, occ), anisotropy,
-                              black_border, temperature,
-                              binary_heights=binary_occupancy,
-                              kernels=kernels)
+                              black_border, temperature, axis_name,
+                              binary_occupancy, kernels=kernels)
 
 
 def _soft_edtsq_batch(occupancy, anisotropy, black_border=False,
@@ -380,14 +396,13 @@ def soft_sdfsq(occupancy, anisotropy, black_border=False, barrier=None,
                temperature=0.0, axis_name=None, *, device=None,
                kernels=KERNELS):
     """Differentiable signed squared distance: d(occ) - d(1 - occ).
-    axis_name must be None (single device)."""
-    _single_device(axis_name)
+    axis_name as in ``edtsq_from_heights``."""
     dev = _resolve_device([occupancy, barrier], device)
     occ = _as_tensor(occupancy, dev)
     fg = soft_edtsq(occ, anisotropy, black_border, barrier, temperature,
-                    kernels=kernels)
+                    axis_name, kernels=kernels)
     bg = soft_edtsq(1.0 - occ.to(F32), anisotropy, black_border, barrier,
-                    temperature, kernels=kernels)
+                    temperature, axis_name, kernels=kernels)
     return fg - bg
 
 
@@ -422,12 +437,26 @@ def _wall_counts(labels, axis, black_border):
     return torch.where(wmin > n, sent, wmin)
 
 
-def wall_counts_for(labels, black_border=False, *, device=None):
+def wall_counts_for(labels, black_border=False, axis_name=None, *,
+                    device=None):
     """multilabel_edtsq's label analysis for a FIXED label volume: the wall
     counts of every axis (a tuple, each in the volume's own layout), to
-    pass as ``wall_counts=`` when labels stay the same across calls."""
+    pass as ``wall_counts=`` when labels stay the same across calls.
+
+    axis_name: None, or the process group over which axis 0 is sharded
+    (labels then this rank's slab, as in multilabel_edtsq): the axis-0
+    scan runs on whole rows in the rotated layout (a slab's own scan would
+    plant walls at its edges) and its counts are rotated back."""
     lab = _labels_tensor(labels, _resolve_device([labels], device))
-    return tuple(_wall_counts(lab, ax, black_border) for ax in range(lab.dim()))
+    _check_axis_name(axis_name, lab.dim())
+    out = []
+    for ax in range(lab.dim()):
+        if axis_name is not None and ax == 0:
+            c = _wall_counts(all_to_all(lab, axis_name, 2, 0), 0, black_border)
+            out.append(all_to_all(c, axis_name, 0, 2))
+        else:
+            out.append(_wall_counts(lab, ax, black_border))
+    return tuple(out)
 
 
 def _multilabel_pass(f, wall_cnt_ax, w, temperature=0.0, binary_heights=False,
@@ -468,13 +497,16 @@ def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
     tuple of ``wall_counts_for(labels, black_border)``, from the SAME
     labels and black_border. temperature > 0 runs the softmin passes, the
     walls blended in with logaddexp; binary_occupancy then has no effect.
-    axis_name must be None (single device).
+    axis_name: None, or the process group over which axis 0 is sharded,
+    labels, occupancy and wall_counts (then from ``wall_counts_for(labels,
+    black_border, axis_name)``) being this rank's slabs (module doc); the
+    axis-0 pass rotates the labels, or the axis-0 counts when given.
     """
-    _single_device(axis_name)
     dev = _resolve_device([labels, occupancy, barrier, *(wall_counts or ())],
                           device)
     lab = _labels_tensor(labels, dev)
     nd = lab.dim()
+    _check_axis_name(axis_name, nd)
     anis = np.asarray(anisotropy if anisotropy is not None else (1.0,) * nd,
                       np.float32).reshape(nd)
     if barrier is None:
@@ -488,7 +520,16 @@ def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
     binary_occupancy = bool(binary_occupancy)
     f = _heights(barrier, occ)
     for step, ax in enumerate(_pass_order(anis)):
-        if wall_counts is not None:
+        rotated = axis_name is not None and ax == 0
+        if rotated:
+            f = rotate(f, axis_name, 2, 0)
+            if wall_counts is not None:
+                cnt = all_to_all(_as_tensor(wall_counts[0], dev), axis_name,
+                                 2, 0)
+            else:
+                cnt = _wall_counts(all_to_all(lab, axis_name, 2, 0), 0,
+                                   black_border)
+        elif wall_counts is not None:
             cnt = _as_tensor(wall_counts[ax], dev)
         else:
             # counts in the volume's own layout: the pass transpose then
@@ -499,4 +540,6 @@ def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
             float(anis[ax]), temperature,
             binary_heights=binary_occupancy and step == 0,
             kernels=kernels).movedim(-1, ax)
+        if rotated:
+            f = rotate(f, axis_name, 0, 2)
     return torch.where(lab == 0, 0.0, f)

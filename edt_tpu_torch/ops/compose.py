@@ -22,10 +22,28 @@ def _along_last(fn, axis, *tensors):
     return fn(*moved).movedim(-1, axis)
 
 
+def parabolic_along(f, labels, axis, w, black_border, binary=False,
+                    parabolic_fn=None, minplus_fn=None):
+    """One parabolic pass along ``axis`` of f (labels unused when
+    ``binary``), through ``core.parabolic_pass_sq``."""
+    if binary:
+        return _along_last(
+            lambda ff: core.parabolic_pass_sq(
+                ff, ff, w, black_border, binary=True,
+                parabolic_fn=parabolic_fn, minplus_fn=minplus_fn),
+            axis, f)
+    return _along_last(
+        lambda ff, lab: core.parabolic_pass_sq(
+            ff, lab, w, black_border, parabolic_fn=parabolic_fn,
+            minplus_fn=minplus_fn),
+        axis, f, labels)
+
+
 def edtsq(
     labels: torch.Tensor,
     anisotropy,
     black_border: bool = False,
+    minplus_fn=None,
     binary: bool = False,
     parabolic_fn=None,
     axis_order: tuple | None = None,
@@ -35,9 +53,13 @@ def edtsq(
     labels: 0 is background; label boundaries act as walls at distance w.
     anisotropy: (ndim,) voxel pitch per axis. binary: fast path for
     two-valued volumes (nonzero = one foreground label).
+    minplus_fn: the min-plus alone, the JAX package's contract
+    (f2d, start2d, end2d, w2, masked) -> d2d, with the walls applied after
+    it (``core.parabolic_pass_sq``); used only without ``parabolic_fn``.
     parabolic_fn: the parabolic pass, (f2d, labels2d, w2, black_border,
-    binary) -> d2d; None takes ``minplus.make_parabolic_fn()``, which runs
-    the K1 kernel on CUDA tensors and its plain version on CPU tensors.
+    binary) -> d2d. With neither, ``minplus.make_parabolic_fn()``, which
+    runs the K1 kernel on CUDA tensors and its plain version on CPU
+    tensors.
     axis_order: static permutation whose first entry takes the RP pass;
     default (nd-1, ..., 0).
     """
@@ -45,7 +67,7 @@ def edtsq(
     anisotropy = [core.f32(a) for a in anisotropy]
     if len(anisotropy) != nd:
         raise ValueError(f"anisotropy must have {nd} components")
-    if parabolic_fn is None:
+    if parabolic_fn is None and minplus_fn is None:
         parabolic_fn = minplus.make_parabolic_fn()
     if axis_order is None:
         axis_order = tuple(range(nd - 1, -1, -1))
@@ -56,44 +78,35 @@ def edtsq(
         a1, labels)
 
     for ax in axis_order[1:]:
-        w = anisotropy[ax]
-        if binary:
-            f = _along_last(
-                lambda ff: core.parabolic_pass_sq(
-                    ff, ff, w, black_border, binary=True,
-                    parabolic_fn=parabolic_fn),
-                ax, f)
-        else:
-            f = _along_last(
-                lambda ff, lab: core.parabolic_pass_sq(
-                    ff, lab, w, black_border, parabolic_fn=parabolic_fn),
-                ax, f, labels)
+        f = parabolic_along(f, labels, ax, anisotropy[ax], black_border,
+                            binary, parabolic_fn, minplus_fn)
     return f
 
 
-def edt(labels, anisotropy, black_border=False, parabolic_fn=None,
-        axis_order=None):
+def edt(labels, anisotropy, black_border=False, minplus_fn=None,
+        parabolic_fn=None, axis_order=None):
     """Euclidean distance (sqrt of edtsq)."""
-    return torch.sqrt(edtsq(labels, anisotropy, black_border,
+    return torch.sqrt(edtsq(labels, anisotropy, black_border, minplus_fn,
                             parabolic_fn=parabolic_fn, axis_order=axis_order))
 
 
-def sdfsq(labels, anisotropy, black_border=False, parabolic_fn=None,
-          axis_order=None):
+def sdfsq(labels, anisotropy, black_border=False, minplus_fn=None,
+          parabolic_fn=None, axis_order=None):
     """Squared signed distance field: edtsq(x) - edtsq(x == 0)."""
-    fg = edtsq(labels, anisotropy, black_border, parabolic_fn=parabolic_fn,
-               axis_order=axis_order)
+    fg = edtsq(labels, anisotropy, black_border, minplus_fn,
+               parabolic_fn=parabolic_fn, axis_order=axis_order)
     bg = edtsq((labels == 0).to(torch.uint8), anisotropy, black_border,
-               binary=True, parabolic_fn=parabolic_fn, axis_order=axis_order)
+               minplus_fn, binary=True, parabolic_fn=parabolic_fn,
+               axis_order=axis_order)
     return fg - bg
 
 
-def sdf(labels, anisotropy, black_border=False, parabolic_fn=None,
-        axis_order=None):
+def sdf(labels, anisotropy, black_border=False, minplus_fn=None,
+        parabolic_fn=None, axis_order=None):
     """Signed distance field: edt(x) - edt(x == 0)."""
-    fg = edt(labels, anisotropy, black_border, parabolic_fn=parabolic_fn,
-             axis_order=axis_order)
+    fg = edt(labels, anisotropy, black_border, minplus_fn,
+             parabolic_fn=parabolic_fn, axis_order=axis_order)
     bg = torch.sqrt(edtsq((labels == 0).to(torch.uint8), anisotropy,
-                          black_border, binary=True,
+                          black_border, minplus_fn, binary=True,
                           parabolic_fn=parabolic_fn, axis_order=axis_order))
     return fg - bg

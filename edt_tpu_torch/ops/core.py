@@ -153,13 +153,17 @@ def parabolic_pass_sq(
     black_border: bool,
     binary: bool = False,
     parabolic_fn=None,
+    minplus_fn=None,
 ) -> torch.Tensor:
     """Multi-label parabolic (FH) squared-EDT pass along axis -1.
 
     ``f`` holds squared distances from previous passes; ``labels`` drives
     the per-segment restarts. ``parabolic_fn``, if given, runs the whole
     pass (segment bounds, min-plus, walls); signature
-    (f2d, labels2d, w2, black_border, binary) -> d2d.
+    (f2d, labels2d, w2, black_border, binary) -> d2d. Otherwise
+    ``minplus_fn``, if given, replaces the brute-force min-plus alone, with
+    the JAX package's signature (f2d, start2d, end2d, w2, masked) -> d2d;
+    the binary pass hands it f2d as placeholder bounds with masked=False.
 
     ``binary=True`` is the fast path for two-valued volumes: background
     voxels carry f == 0 and act as sources themselves, which makes segment
@@ -177,10 +181,19 @@ def parabolic_pass_sq(
         d = parabolic_fn(f2, labels.reshape(-1, n), w2, black_border, binary)
         return d.reshape(shape)
 
-    d = minplus_masked(f2, None, w2).reshape(shape)
     if binary:
+        if minplus_fn is None:
+            d = minplus_masked(f2, None, w2)
+        else:
+            d = minplus_fn(f2, f2, f2, w2, masked=False)
+        d = d.reshape(shape)
         return binary_border_sq(d, n, w2) if black_border else d
 
     start, end = segment_bounds(labels)
-    d = border_envelopes_sq(d, start, end, n, w2, black_border)
+    if minplus_fn is None:
+        d = minplus_masked(f2, None, w2)
+    else:
+        d = minplus_fn(f2, start.reshape(-1, n), end.reshape(-1, n), w2,
+                       masked=True)
+    d = border_envelopes_sq(d.reshape(shape), start, end, n, w2, black_border)
     return torch.where(labels == 0, 0.0, d)

@@ -139,7 +139,10 @@ def edtsq_voxel_graph(data, graph, anisotropy, black_border, arr_order,
     voxel connectivity graph; computed on ``device``, returned as NumPy.
 
     Only the original-size mask and graph go to the device, and only the
-    original-size result comes back: the doubled volume stays there.
+    original-size result comes back: the doubled volume stays there. It
+    runs on one card at any size: a process drives one card, so a doubled
+    volume too large for it goes through
+    ``parallel.edtsq_voxel_graph_sharded`` explicitly (see ``api``).
     """
     data = np.asarray(data)
     graph = np.asarray(graph)

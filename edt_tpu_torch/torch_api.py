@@ -8,10 +8,10 @@ kernels on a CUDA tensor, their plain versions on a CPU tensor). For the
 NumPy drop-in API use the top-level ``edt_tpu_torch`` module instead.
 
 ``make_parabolic_fn`` is the counterpart of the JAX package's
-``default_parabolic_fn``. The sharded names of ``edt_tpu.jax_api``
-(``default_mesh``, ``edtsq_sharded``, ``edtsq_sharded_auto``,
-``edt_sharded``, ``sdf_sharded``, ``edtsq_voxel_graph_sharded``) join when
-the sharded transforms are ported (ROADMAP Queue A); they are not here.
+``default_parabolic_fn``. The sharded names (``default_mesh``,
+``edtsq_sharded``, ``edtsq_sharded_auto``, ``edt_sharded``,
+``sdf_sharded``, ``edtsq_voxel_graph_sharded``) run over
+``torch.distributed``, every rank calling them (``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,14 @@ from edt_tpu_torch.models.soft import (
 from edt_tpu_torch.ops.compose import edt, edtsq, sdf, sdfsq
 from edt_tpu_torch.ops.minplus import make_parabolic_fn
 from edt_tpu_torch.ops.voxel_graph import edtsq_voxel_graph_torch
+from edt_tpu_torch.parallel.sharded import (
+    default_mesh,
+    edt_sharded,
+    edtsq_sharded,
+    edtsq_sharded_auto,
+    edtsq_voxel_graph_sharded,
+    sdf_sharded,
+)
 
 
 def extract_label(labels, dt, label):
@@ -73,5 +81,7 @@ __all__ = [
     "edtsq_from_heights", "multilabel_edtsq", "wall_counts_for",
     "soft_edtsq", "soft_sdfsq",
     "default_barrier",
+    "default_mesh", "edtsq_sharded", "edtsq_sharded_auto", "edt_sharded",
+    "sdf_sharded", "edtsq_voxel_graph_sharded",
     "extract_label", "extract_labels", "each_device",
 ]

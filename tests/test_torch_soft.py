@@ -265,8 +265,8 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
 def test_positional_arguments_bind_as_in_jax():
     """Every differentiable transform takes ``axis_name`` at the JAX
     package's position, so the same positional call gives the same
-    forward, bit for bit; a set axis_name raises until the sharded passes
-    are ported."""
+    forward, bit for bit; an axis_name there that is not a process group
+    raises TypeError."""
     rng = np.random.default_rng(0)
     labels = rng.integers(0, 3, (8, 9, 10)).astype(np.int32)
     occ = (labels != 0).astype(np.float32)
@@ -292,7 +292,7 @@ def test_positional_arguments_bind_as_in_jax():
         assert got.dtype == ref.dtype and np.array_equal(got, ref)
         # axis_name is the argument after temperature
         k = 4 if jfn is jsoft.edtsq_from_heights else 5
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        with pytest.raises(TypeError, match="ProcessGroup"):
             tfn(torch.from_numpy(x), *args[:k - 1], "x")
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        with pytest.raises(TypeError, match="ProcessGroup"):
             tfn(torch.from_numpy(x), *args[:2], axis_name="x")
