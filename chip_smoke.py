@@ -56,7 +56,17 @@ paths:
   kernel alone on rank 0's first call; then the 512^3 forward and fwd+bwd
   in one NCCL rank, and over min(4, cards) NCCL ranks where there are
   more cards. The gloo ranks share one card and stage their collectives
-  through the host, so their times are no scaling figure.
+  through the host, so their times are no scaling figure;
+- slice 11 (phase ``train_sharded``): the trainers' sharded steps over a
+  (dp, sp) mesh at the single-card phases' widths, each from the same
+  parameters as the single-card ``make_train_step`` and held to it with
+  the JAX package's tolerances, K5 and K6 counted on every rank: four
+  gloo ranks on card 0 (2 x 2) run the DistanceFieldNet psum step at
+  2 x 256^3 (gloo on CUDA tensors carries all_reduce, not reduce_scatter
+  or send/recv); one NCCL rank (1 x 1), and four (2 x 2) where there are
+  four cards, run it with SGD and Adam, the reduce-scatter step (Adam,
+  two steps, against the psum step, its moments in block order
+  sp * n_dp + dp) and the UNet3D step at 2 x 128^3 (the halo exchange).
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -67,6 +77,7 @@ phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import statistics
@@ -824,6 +835,21 @@ def phase_slice_small(exact, dev):
                 compose.edtsq(torch.from_numpy(occ.view(np.uint8)).to(dev),
                               ANISO, True, binary=True, parabolic_fn=plain,
                               axis_order=order))
+    # the JAX package's default backends by name: K1 on the card
+    for name, kw in (("default_minplus_fn",
+                      {"minplus_fn": compose.default_minplus_fn()}),
+                     ("default_parabolic_fn",
+                      {"parabolic_fn": compose.default_parabolic_fn()})):
+        if None in kw.values():
+            raise AssertionError(f"{name}() is None with a card")
+        for bb in (False, True):
+            minplus.launches = 0
+            got = compose.edtsq(lt, ANISO, bb, axis_order=order, **kw)
+            if minplus.launches != 2:
+                raise AssertionError(f"{name}: K1 launches {minplus.launches}")
+            exact.check(f"128^3 edtsq {name} bb={bb}", got,
+                        compose.edtsq(lt, ANISO, bb, parabolic_fn=plain,
+                                      axis_order=order))
     exact.raise_if_failed("slice at 128^3")
     # an independent oracle: the host FH implementation (f64 intercepts)
     small = make_labels(np.random.default_rng(4), 64)
@@ -831,8 +857,8 @@ def phase_slice_small(exact, dev):
     ref = host_reference.edtsq_host(small, ANISO, True)
     if got.shape != ref.shape or not np.allclose(got, ref, rtol=1e-5):
         raise AssertionError("64^3 edtsq disagrees with the host oracle")
-    print("slice at 128^3: bit-exact to the plain path; 64^3 matches the "
-          "host oracle")
+    print("slice at 128^3: bit-exact to the plain path, through the default "
+          "backends too; 64^3 matches the host oracle")
 
 
 def phase_slice_full(exact, kernels, dev):
@@ -3102,34 +3128,38 @@ def checked_cases(report, rank, world, full, dev, mesh, lt):
     return ml, sm
 
 
-def sharded_rank(rank, world, backend, rendezvous, outdir, full):
+def sharded_rank(rank, world, backend, rendezvous, outdir, cases, args):
     """A spawned rank: ``backend`` ("gloo": every rank on card 0; "nccl":
-    rank r on card r), the cases, its report written as JSON."""
+    rank r on card r), ``cases(rank, world, *args, dev=...)``, its report
+    saved with ``torch.save``."""
     import torch.distributed as dist
 
     dev = torch.device("cuda", 0 if backend == "gloo" else rank)
     torch.cuda.set_device(dev)
+    # f32 matmuls and convolutions, as main sets them (cuDNN's default is TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group(backend, init_method=f"file://{rendezvous}",
                             rank=rank, world_size=world)
     try:
-        report = sharded_cases(rank, world, full, dev)
-        with open(f"{outdir}/rank{rank}.json", "w") as fh:
-            json.dump(report, fh)
+        report = cases(rank, world, *args, dev=dev)
+        torch.save(report, f"{outdir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(world, backend, full):
-    """Spawn ``world`` ranks running ``sharded_rank``; their reports. Any
-    rank's failure (or the time limit) fails the call."""
+def spawn_ranks(world, backend, cases, *args):
+    """Spawn ``world`` ranks running ``cases`` with ``args``; their
+    reports. Any rank's failure (or ``SHARD_TIMEOUT_S``) fails the
+    call."""
     import tempfile
 
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.spawn(sharded_rank, args=(world, backend,
-                                           f"{tmp}/rendezvous", tmp, full),
-                       nprocs=world, join=False)
+        ctx = mp.spawn(sharded_rank, args=(
+            world, backend, f"{tmp}/rendezvous", tmp, cases, args),
+            nprocs=world, join=False)
         deadline = time.monotonic() + SHARD_TIMEOUT_S
         try:
             while not ctx.join(timeout=5):
@@ -3141,11 +3171,7 @@ def spawn_ranks(world, backend, full):
                 if p.is_alive():
                     p.terminate()
                     p.join(10)
-        reports = []
-        for r in range(world):
-            with open(f"{tmp}/rank{r}.json") as fh:
-                reports.append(json.load(fh))
-    return reports
+        return [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
 
 
 def phase_sharded(kernels, dev):
@@ -3164,7 +3190,7 @@ def phase_sharded(kernels, dev):
         runs.append(("nccl", min(4, torch.cuda.device_count()), False))
     for backend, world, full in runs:
         t = time.perf_counter()
-        reports = spawn_ranks(world, backend, full)
+        reports = spawn_ranks(world, backend, sharded_cases, full)
         label = f"{world} {backend} rank{'s' if world > 1 else ''}"
         print(f"sharded, {label}: every case bit-exact to the single-card "
               f"call (gradients within tolerance), launches checked on every "
@@ -3193,6 +3219,340 @@ def phase_sharded(kernels, dev):
             kernels.append(dict(e, name=f"{e['name']} (sharded, {world} "
                                 f"gloo ranks on one card)",
                                 launches=launches))
+
+
+# ---------------- slice 11: the trainers' sharded steps ----------------
+
+TRAIN_SHARD_STEPS = 3  # steps a case; the first (and an Adam case's second) checked
+# case: (model, optimizer, learning rate, reduce-scatter, steps checked);
+# SGD's rate suits a loss of about 8e6 (2 x 256^3, barrier 256^2 / 2)
+TRAIN_SHARD_CASES = {
+    "DistanceFieldNet psum SGD": ("DistanceFieldNet", "SGD", 1e-7, False, 1),
+    "DistanceFieldNet psum Adam": ("DistanceFieldNet", "Adam", 1e-3, False, 2),
+    "DistanceFieldNet reduce-scatter Adam": ("DistanceFieldNet", "Adam", 1e-3,
+                                             True, 2),
+    "UNet3D psum Adam": ("UNet3D", "Adam", 1e-3, False, 1),
+}
+# gloo on CUDA tensors carries all_reduce, not reduce_scatter or send/recv
+GLOO_TRAIN_CASES = ("DistanceFieldNet psum SGD",)
+
+
+def train_model(family, dev):
+    """The trainer of the DistanceFieldNet and UNet3D phases, seed 0."""
+    from edt_tpu_torch.models import distance_net, unet3d
+
+    gen = torch.Generator().manual_seed(0)
+    if family == "DistanceFieldNet":
+        return distance_net.DistanceFieldNet(8, 32, generator=gen, device=dev)
+    return unet3d.UNet3D(4, 8, 2, generator=gen, device=dev)
+
+
+def train_batch(family, dev):
+    """The family's batch of the single-card phases (2 x 256^3, c_in 8;
+    UNet3D 2 x 128^3, c_in 4), its size; K1 makes the target."""
+    from edt_tpu_torch.models import distance_net
+
+    S, c_in, seed = ((TRAIN_FULL, 8, 1) if family == "DistanceFieldNet"
+                     else (TRAIN_SMALL, 4, 3))
+    feats, target = distance_net.synthetic_batch(
+        np.random.default_rng(seed), 2, (S,) * 3, c_in, device=dev)
+    return feats, target, S
+
+
+def make_optimizer(kind, lr):
+    if kind == "SGD":
+        return lambda ts: torch.optim.SGD(ts, lr)
+    return lambda ts: torch.optim.Adam(ts, lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def cpu_state(model):
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+
+
+def run_train_case(case, model, step, feats, target, launches,
+                   moments=None, capture=None):
+    """TRAIN_SHARD_STEPS steps of ``step`` (K5 and K6 3 + 3 a step,
+    checked by ``train_steps``, added to ``launches``): the losses, the
+    step times (CUDA events), the parameters after each checked step and
+    ``moments()`` after the first. ``capture``, a ``Capture``, records the
+    kernels' calls of the first step."""
+    checked = TRAIN_SHARD_CASES[case][4]
+    out = {"losses": [], "ms": [], "params": []}
+    for i in range(TRAIN_SHARD_STEPS):
+        with (capture if i == 0 and capture is not None
+              else contextlib.nullcontext()):
+            losses, times = train_steps(step, feats, target, 1, case)
+        out["losses"] += losses
+        out["ms"] += times
+        for k in ("K5", "K6"):
+            launches[k] = launches.get(k, 0) + 3
+        if i < checked:
+            out["params"].append(cpu_state(model))
+        if i == 0 and moments is not None:
+            out["moments"] = moments()
+    return out
+
+
+def adam_moments(opt, params):
+    """Adam's (exp_avg, exp_avg_sq) of every parameter, flat, on the host."""
+    return [[opt.state[p][k].reshape(-1).to("cpu", copy=True)
+             for p in params] for k in ("exp_avg", "exp_avg_sq")]
+
+
+def block_order_moments(opt, mesh):
+    """The reduce-scatter optimizer's moments, every rank's 1/n slices
+    gathered in block order sp * n_dp + dp: the flat padded layout."""
+    import torch.distributed as dist
+
+    n_dp = dist.get_world_size(mesh.get_group("dp"))
+    slices = opt.param_groups[0]["params"]
+    me = torch.tensor([mesh.get_local_rank("dp"), mesh.get_local_rank("sp")],
+                      device=slices[0].device)
+    coords = [torch.empty_like(me) for _ in range(mesh.size())]
+    dist.all_gather(coords, me)
+    out = []
+    for k in ("exp_avg", "exp_avg_sq"):
+        per_param = []
+        for s in slices:
+            parts = [torch.empty_like(s) for _ in range(mesh.size())]
+            dist.all_gather(parts, opt.state[s][k])
+            blocks = [None] * mesh.size()
+            for part, (i, j) in zip(parts, coords):
+                blocks[int(j) * n_dp + int(i)] = part.to("cpu")
+            per_param.append(torch.cat(blocks))
+        out.append(per_param)
+    return out
+
+
+def train_reference_key(case):
+    """Cases that the single-card step computes alike share a reference:
+    the reduce-scatter mode's is the replicated step's."""
+    family, kind, lr, _, _ = TRAIN_SHARD_CASES[case]
+    return family, kind, lr
+
+
+def single_card_train(dev):
+    """Each reference of TRAIN_SHARD_CASES on one card through the
+    single-card ``make_train_step``, from the same parameters: its
+    ``run_train_case`` result (Adam's moments after the first step, flat),
+    by ``train_reference_key``."""
+    from edt_tpu_torch.models import distance_net, unet3d
+
+    refs, launches, batch = {}, {}, None
+    for case in TRAIN_SHARD_CASES:
+        key = train_reference_key(case)
+        if key in refs:
+            continue
+        family, kind, lr = key
+        if batch is None or batch[0] != family:
+            batch = None
+            torch.cuda.empty_cache()
+            batch = (family, *train_batch(family, dev))
+        _, feats, target, S = batch
+        model = train_model(family, dev)
+        opt = make_optimizer(kind, lr)(list(model.parameters()))
+        mod = distance_net if family == "DistanceFieldNet" else unet3d
+        step = mod.make_train_step(model, opt, temperature=SOFT_T,
+                                   barrier=S * S / 2)
+        refs[key] = run_train_case(
+            case, model, step, feats, target, launches,
+            moments=(lambda: adam_moments(opt, model.parameters()))  # noqa: B023
+            if kind == "Adam" else None)
+        del model, opt, step
+    del batch
+    torch.cuda.empty_cache()
+    return refs
+
+
+def train_sharded_cases(rank, world, cases, dev):
+    """One rank's cases of the trainers' sharded steps over a (dp, sp)
+    mesh, 2 x 2 on four ranks, 1 x 1 on one: each case from the same
+    parameters as the single-card step, every step's K5 and K6 launches
+    checked on this rank; under gloo, rank 0 then times K5 and K6 alone on
+    its first step's calls."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from edt_tpu_torch.models import distance_net, unet3d
+
+    n_dp = 2 if world == 4 else 1
+    mesh = init_device_mesh(dev.type, (n_dp, world // n_dp),
+                            mesh_dim_names=("dp", "sp"))
+    backend = dist.get_backend()
+    report = {"rank": rank, "launches": {}, "cases": {}, "backend": backend}
+    cap = Capture() if backend == "gloo" else None
+    batch = None
+    for case in cases:
+        family, kind, lr, rs, _ = TRAIN_SHARD_CASES[case]
+        if batch is None or batch[0] != family:
+            batch = None
+            torch.cuda.empty_cache()
+            batch = (family, *counted(report, f"{family} synthetic_batch",
+                                      {"K1": 4},
+                                      lambda: train_batch(family, dev)))  # noqa: B023
+        _, feats, target, S = batch
+        model = train_model(family, dev)
+        mod = distance_net if family == "DistanceFieldNet" else unet3d
+        kw = dict(temperature=SOFT_T, barrier=S * S / 2)
+        if rs:
+            opt = distance_net.init_sharded_opt_state(
+                mesh, make_optimizer(kind, lr), model)
+            moments = lambda: block_order_moments(opt, mesh)  # noqa: B023,E731
+            step = mod.make_sharded_train_step(model, mesh, opt,
+                                               grad_reduce_scatter=True, **kw)
+        else:
+            opt = make_optimizer(kind, lr)(list(model.parameters()))
+            moments = ((lambda: adam_moments(opt, model.parameters()))  # noqa: B023
+                       if kind == "Adam" else None)
+            step = mod.make_sharded_train_step(model, mesh, opt, **kw)
+        report["cases"][case] = run_train_case(
+            case, model, step, feats, target, report["launches"], moments,
+            cap if not report["cases"] else None)
+        del model, opt, step
+    del batch
+    if cap is not None:
+        if rank == 0:
+            exps_per_s = sfu_exps_per_s()
+            with torch.no_grad():
+                report["kernels"] = [shard_kernel_entry(k, cap.calls[k],
+                                                        exps_per_s)
+                                     for k in ("K5", "K6")]
+        del cap
+        dist.barrier()
+    return report
+
+
+def compare_train(rep, ref, checked, n, loss_rtol, params, moments):
+    """A rank's ``run_train_case`` result against ``ref``'s: the losses
+    and parameters of the ``checked`` steps (loss within ``loss_rtol``,
+    parameters by the ``Close`` ``params``) and, where ``rep`` has them,
+    the moments by ``moments`` (``rep``'s may be the reduce-scatter
+    layout, padded to a multiple of n with zeros). The failures."""
+    fails = []
+    for i in range(checked):
+        got, want = rep["losses"][i], ref["losses"][i]
+        if not abs(got - want) <= loss_rtol * abs(want):
+            fails.append(f"step {i + 1} loss {got} vs {want}")
+        for k, v in ref["params"][i].items():
+            params.check(f"step {i + 1} {k}", rep["params"][i][k], v)
+    for name, got_m, want_m in zip(("exp_avg", "exp_avg_sq"),
+                                   rep.get("moments", ()), ref.get("moments", ())):
+        for j, (g, w) in enumerate(zip(got_m, want_m)):
+            if g.numel() != w.numel():
+                if (g.numel() != w.numel() + (-w.numel()) % n
+                        or g[w.numel():].any()):
+                    fails.append(f"{name} {j}: not the flat padded layout")
+                g = g[:w.numel()]
+            moments.check(f"{name} {j}", g, w)
+    return fails + params.failures + moments.failures
+
+
+def check_train_case(case, rep, ref, n):
+    """A rank's case against the single-card step with the JAX package's
+    tolerances (``tests/test_distance_net.py:38``: loss rtol 1e-4,
+    parameters ``np.allclose(atol=1e-5)``; ``tests/test_unet3d.py:61``:
+    loss rtol 1e-5, parameters rtol 1e-4, atol 1e-5); the moments (the
+    flat padded layout of the reduce-scatter mode) within the gradients'
+    tolerance, rtol 1e-4 with atol 1e-4 max|ref| (a block permutation
+    moves whole blocks). Returns (failures, parameters' max error,
+    moments' max error)."""
+    family, _, _, _, checked = TRAIN_SHARD_CASES[case]
+    if family == "DistanceFieldNet":
+        loss_rtol, params = 1e-4, Close(1e-5, atol=1e-5)
+    else:
+        loss_rtol, params = 1e-5, Close(1e-4, atol=1e-5)
+    moments = Close(1e-4, atol=0.0, atol_rel=1e-4)
+    fails = compare_train(rep, ref, checked, n, loss_rtol, params, moments)
+    return fails, params.max_abs_err, moments.max_abs_err
+
+
+def check_reduce_scatter_vs_psum(rep, n):
+    """The reduce-scatter step against the psum step of the same rank, as
+    ``tests/test_distance_net.py:72`` holds them: loss rtol 1e-5,
+    parameters and moments ``np.allclose(atol=1e-6)``. Returns (failures,
+    max error)."""
+    params, moments = Close(1e-5, atol=1e-6), Close(1e-5, atol=1e-6)
+    fails = compare_train(rep["cases"]["DistanceFieldNet reduce-scatter Adam"],
+                          rep["cases"]["DistanceFieldNet psum Adam"], 2, n,
+                          1e-5, params, moments)
+    return fails, max(params.max_abs_err, moments.max_abs_err)
+
+
+def phase_train_sharded(kernels, dev):
+    """The trainers' sharded steps over a (dp, sp) mesh at the single-card
+    phases' widths (DistanceFieldNet 2 x 256^3, c_in 8, hidden 32; UNet3D
+    2 x 128^3, c_in 4, c0 8, levels 2), each held to the single-card step
+    from the same parameters: four gloo ranks on card 0 (2 x 2, the psum
+    step: gloo carries all_reduce on CUDA tensors, not reduce_scatter or
+    send/recv), one NCCL rank (1 x 1) with every case, and four NCCL ranks
+    (2 x 2) where there are four cards."""
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    refs = single_card_train(dev)
+    for key, ref in refs.items():
+        print(f"train_sharded, one card, single-card step, {' '.join(map(str, key))} "
+              f"({smi}): steps {[round(x, 2) for x in ref['ms']]} ms, losses "
+              f"{ref['losses']}")
+    cases = tuple(TRAIN_SHARD_CASES)
+    runs = [("gloo", 4, GLOO_TRAIN_CASES), ("nccl", 1, cases)]
+    cards = torch.cuda.device_count()
+    if cards >= 4:
+        runs.append(("nccl", 4, cases))
+    else:
+        print(f"train_sharded, 4 NCCL ranks (2 x 2), {', '.join(cases)}: "
+              f"not run: {cards} cards")
+    failed = []
+    for backend, world, run_cases in runs:
+        t = time.perf_counter()
+        reports = spawn_ranks(world, backend, train_sharded_cases, run_cases)
+        mesh = "2 x 2" if world == 4 else "1 x 1"
+        print(f"train_sharded, {world} {backend} rank{'s' if world > 1 else ''}"
+              f" ({mesh} mesh; {'every rank on card 0' if backend == 'gloo' else 'one card a rank'}"
+              f"; backend {reports[0]['backend']}): "
+              f"{time.perf_counter() - t:.1f} s")
+        for case in run_cases:
+            ref = refs[train_reference_key(case)]
+            print(f"  {case}: single-card step {statistics.median(ref['ms'][1:]):.2f} ms "
+                  f"(median after the first), loss {ref['losses'][0]}")
+            for rep in reports:
+                res = rep["cases"][case]
+                fails, err, moments = check_train_case(case, res, ref, world)
+                failed += [f"{backend} {world} rank {rep['rank']} {case}: {f}"
+                           for f in fails]
+                print(f"    rank {rep['rank']} ({smi}): steps "
+                      f"{[round(x, 2) for x in res['ms']]} ms, median after the "
+                      f"first {statistics.median(res['ms'][1:]):.2f} ms; losses "
+                      f"{res['losses']}; parameters max abs err {err:.3g}"
+                      + (f", moments max abs err {moments:.3g}"
+                         if "moments" in res else "")
+                      + f"; {'ok' if not fails else 'FAILED'}")
+        if "DistanceFieldNet reduce-scatter Adam" in run_cases:
+            for rep in reports:
+                fails, err = check_reduce_scatter_vs_psum(rep, world)
+                failed += [f"{backend} {world} rank {rep['rank']} "
+                           f"reduce-scatter vs psum: {f}" for f in fails]
+                print(f"    rank {rep['rank']}: reduce-scatter against psum "
+                      f"(Adam, 2 steps, moments in block order): max abs err "
+                      f"{err:.3g}; {'ok' if not fails else 'FAILED'}")
+        for rep in reports:
+            print(f"    rank {rep['rank']} launches {rep['launches']}")
+        for e in reports[0].get("kernels", ()):
+            k = next(x[0] for x in SHARD_KERNELS if x[4] == e["name"])
+            launches = sum(rep["launches"].get(k, 0) for rep in reports)
+            shape = e.pop("shape")
+            print(f"  {k} alone on rank 0's first sharded train step "
+                  f"{tuple(shape)}: {e['ms']:.3f} ms, plain {e['plain_ms']:.1f} "
+                  f"ms, bound {e['bound_ms']:.3f} ms ({e['bound_by']}); "
+                  f"{launches} launches over the {world} ranks")
+            kernels.append(dict(e, name=f"{e['name']} (sharded train step, "
+                                f"{world} gloo ranks on one card)",
+                                launches=launches))
+    if failed:
+        raise AssertionError(f"train_sharded: {len(failed)} failures: "
+                             + "; ".join(failed[:10]))
 
 
 def main(only=()) -> int:
@@ -3262,7 +3622,9 @@ def main(only=()) -> int:
               ("export_grad: exported gradients",
                lambda: phase_export_grad(Exact(), dev)),
               ("sharded: torch.distributed ranks",
-               lambda: phase_sharded(kernels, dev))]
+               lambda: phase_sharded(kernels, dev)),
+              ("train_sharded: the trainers' sharded steps",
+               lambda: phase_train_sharded(kernels, dev))]
     if only:
         phases = [(name, fn) for name, fn in phases if name == "build"
                   or any(w.lower() in name.lower() for w in only)]

@@ -6,8 +6,11 @@
   softmin passes (K5, K6); the wall-faithful multi-label form that
   ``bench.py`` times.
 - ``distance_net``: DistanceFieldNet, a per-voxel MLP trained against a
-  target distance field through ``soft.soft_edtsq`` (one device).
-- ``unet3d``: UNet3D, a 3-D U-Net trained the same way (one device).
+  target distance field through ``soft.soft_edtsq``, on one device or
+  over a (dp, sp) mesh (``make_sharded_train_step``, both gradient modes,
+  and ``init_sharded_opt_state``).
+- ``unet3d``: UNet3D, a 3-D U-Net trained the same way, on one device or
+  over a (dp, sp) mesh with halo-exchanging convolutions.
 """
 
 from edt_tpu_torch.models import distance_net, unet3d

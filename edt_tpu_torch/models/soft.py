@@ -302,18 +302,20 @@ def _passes(f, anis, black_border, temperature, binary_heights, kernels,
             lead=0, axis_name=None):
     """The passes of ``edtsq_from_heights`` over the axes after the first
     ``lead`` of f, in ascending-pitch order; the leading axes ride in the
-    rows of every pass. With ``axis_name`` the axis-0 pass runs rotated."""
+    rows of every pass. With ``axis_name`` the spatial axis-0 pass runs
+    rotated: spatial axis 2 (axis 2 + lead of f) split over the ranks,
+    spatial axis 0 gathered whole."""
     for step, ax in enumerate(_pass_order(anis)):
         a = ax + lead
         rotated = axis_name is not None and ax == 0
         if rotated:
-            f = rotate(f, axis_name, 2, 0)
+            f = rotate(f, axis_name, 2 + lead, lead)
         f = _soft_pass(f.movedim(a, -1).contiguous(), float(anis[ax]),
                        black_border, temperature,
                        binary_heights=binary_heights and step == 0,
                        kernels=kernels).movedim(-1, a)
         if rotated:
-            f = rotate(f, axis_name, 0, 2)
+            f = rotate(f, axis_name, lead, 2 + lead)
     return f
 
 
@@ -379,17 +381,23 @@ def soft_edtsq(occupancy, anisotropy, black_border=False, barrier=None,
 
 
 def _soft_edtsq_batch(occupancy, anisotropy, black_border=False,
-                      barrier=None, temperature=0.0, kernels=KERNELS):
+                      barrier=None, temperature=0.0, axis_name=None, *,
+                      kernels=KERNELS):
     """``soft_edtsq`` of every volume of a (B, *spatial) tensor, as
-    ``jax.vmap`` runs it in the trainers: the batch rides in the rows of
-    every pass (one launch a pass), the passes run along the spatial axes
-    only, and the default barrier comes from the spatial shape."""
+    ``jax.vmap(soft_edtsq(..., axis_name=...))`` runs it in the trainers:
+    the batch rides in the rows of every pass (one launch a pass), the
+    passes run along the spatial axes only, and the default barrier comes
+    from the spatial shape. axis_name: None, or the process group over
+    which spatial axis 0 is sharded, each volume then this rank's slab
+    (spatial axis 2 must split over its ranks, or the rotation raises
+    ValueError, as JAX's ``all_to_all`` requires)."""
     spatial = tuple(occupancy.shape[1:])
+    _check_axis_name(axis_name, len(spatial))
     anis = np.asarray(anisotropy, np.float32).reshape(len(spatial))
     if barrier is None:
         barrier = default_barrier(spatial, anis)
     return _passes(_heights(barrier, occupancy), anis, black_border,
-                   temperature, False, kernels, lead=1)
+                   temperature, False, kernels, lead=1, axis_name=axis_name)
 
 
 def soft_sdfsq(occupancy, anisotropy, black_border=False, barrier=None,

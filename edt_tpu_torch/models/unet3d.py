@@ -17,18 +17,32 @@ cannot express, so they take an explicit ``F.pad``. ``compute_dtype=
 torch.bfloat16`` casts inputs and weights; the output of each conv returns
 to f32. The convolutions go to cuDNN (``F.conv3d``), as the JAX package
 leaves them to XLA; on the card an f32 conv runs in TF32 unless
-``torch.backends.cudnn.allow_tf32`` is False. The halo exchange and the
-sharded step are not ported yet.
+``torch.backends.cudnn.allow_tf32`` is False.
+
+Sharded (``axis_name``, a process group over which X is sharded; the
+step over a (dp, sp) mesh, ``parallel.train``): every 3x3x3 conv first
+exchanges halos along axis 2 of the NCDHW activations (X): each rank
+sends its first plane to the rank before it and its last to the rank
+after (``batch_isend_irecv``), and the edge ranks receive zeros, the
+"SAME" zero padding of the unsharded conv. The exchange's backward sends
+each halo's cotangent back to the rank that owns the plane, which adds it
+to its boundary plane's gradient. The haloed axis then takes the VALID
+conv at stride 1; at stride 2 it drops the left halo plane and keeps the
+right (windows start at even positions), H and W padding (0, 1). Every
+slab, and the full Y and Z, must be a multiple of 2**levels, so the
+stride-2 stages and the nearest-neighbour upsample stay slab-local.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
 from edt_tpu_torch.models import soft
+from edt_tpu_torch.parallel import train
 
 F32 = torch.float32
 
@@ -65,12 +79,19 @@ class UNet3D(nn.Module):
             self.add_module(f"dec{lv}", conv(3, 2 * ch, ch))
         self.head = conv(1, ch, 1)
 
-    def forward(self, feats, compute_dtype=None):
-        """Occupancy logits; feats (B, X, Y, Z, C) -> (B, X, Y, Z)."""
+    def forward(self, feats, axis_name=None, compute_dtype=None):
+        """Occupancy logits; feats (B, X, Y, Z, C) -> (B, X, Y, Z).
+        axis_name: None, or the process group over which X is sharded
+        (feats then this rank's slabs; module doc)."""
         levels = num_levels(self)
+        if axis_name is not None and any(n % 2 ** levels
+                                         for n in feats.shape[1:4]):
+            raise ValueError(
+                f"sharded UNet3D: the slab {tuple(feats.shape[1:4])} must "
+                f"be a multiple of 2**levels = {2 ** levels} on every axis")
         act = lambda x: F.gelu(x, approximate="tanh")  # noqa: E731
         cv = lambda x, name, stride=1: _conv(  # noqa: E731
-            x, getattr(self, name), stride, compute_dtype)
+            x, getattr(self, name), stride, axis_name, compute_dtype)
         x = act(cv(feats.to(F32).permute(0, 4, 1, 2, 3), "stem"))
         skips = []
         for lv in range(levels):
@@ -100,14 +121,69 @@ def _same_pads(shape, k, stride):
     return pads
 
 
-def _conv(x, conv, stride=1, compute_dtype=None):
-    """3-D conv of an NCDHW tensor with "SAME" padding and an f32 output."""
+def _swap_planes(first, last, group):
+    """Send ``first`` to the group's previous rank and ``last`` to its
+    next; returns (the previous rank's ``last``, the next rank's
+    ``first``), zeros at the edge ranks."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    from_prev = torch.zeros_like(last, memory_format=torch.contiguous_format)
+    from_next = torch.zeros_like(first, memory_format=torch.contiguous_format)
+    ops = []
+    if r > 0:
+        peer = dist.get_global_rank(group, r - 1)
+        ops += [dist.P2POp(dist.isend, first.contiguous(), peer, group),
+                dist.P2POp(dist.irecv, from_prev, peer, group)]
+    if r < n - 1:
+        peer = dist.get_global_rank(group, r + 1)
+        ops += [dist.P2POp(dist.isend, last.contiguous(), peer, group),
+                dist.P2POp(dist.irecv, from_next, peer, group)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return from_prev, from_next
+
+
+class _ExchangeHalo(torch.autograd.Function):
+    """(B, C, d, H, W) -> (B, C, d + 2, H, W): the previous rank's last
+    plane before the slab, the next rank's first plane after it (JAX's
+    non-wrapping ``ppermute`` pair). The backward returns each halo's
+    cotangent to the plane it copied."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        left, right = _swap_planes(x[:, :, :1], x[:, :, -1:], group)
+        return torch.cat([left, x, right], dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        to_prev, to_next = g[:, :, :1], g[:, :, -1:]
+        from_prev, from_next = _swap_planes(to_prev, to_next, ctx.group)
+        dx = g[:, :, 1:-1].clone()
+        dx[:, :, :1] += from_prev
+        dx[:, :, -1:] += from_next
+        return dx, None
+
+
+def _conv(x, conv, stride=1, axis_name=None, compute_dtype=None):
+    """3-D conv of an NCDHW tensor with "SAME" padding on the whole volume
+    and an f32 output. With ``axis_name`` the sharded axis 2 is padded by
+    the halo exchange instead of zeros (module doc); k = 1 takes none."""
     w = conv.weight
     k = w.shape[-1]
+    if axis_name is None or k == 1:
+        pads = _same_pads(x.shape[2:], k, stride)
+    else:
+        x = _ExchangeHalo.apply(x, axis_name)
+        if stride == 1:
+            pads = [1, 1, 1, 1, 0, 0]  # the haloed axis takes VALID
+        else:
+            x = x[:, :, 1:]
+            pads = [0, 1, 0, 1, 0, 0]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
-    x = F.pad(x, _same_pads(x.shape[2:], k, stride))
+    x = F.pad(x, pads)
     return F.conv3d(x, w, stride=stride).to(F32) + conv.bias[:, None, None, None]
 
 
@@ -124,14 +200,19 @@ def params_from_jax(params) -> dict:
 
 
 def loss_fn(model, feats, target_dt, anisotropy=(1.0, 1.0, 1.0),
-            temperature=0.3, barrier=None, compute_dtype=None,
-            kernels=soft.KERNELS):
-    """MSE between the soft EDT of the predicted occupancy and target_dt."""
-    occ = torch.sigmoid(model(feats, compute_dtype=compute_dtype))
-    d = soft._soft_edtsq_batch(occ, anisotropy, black_border=True,
-                               barrier=barrier, temperature=temperature,
-                               kernels=kernels)
-    return torch.sum((d - target_dt) ** 2) / d.numel()
+            temperature=0.3, barrier=None, axis_name=None, compute_dtype=None,
+            mesh_axes=None, *, kernels=soft.KERNELS):
+    """MSE between the soft EDT of the predicted occupancy and target_dt.
+    Sharded, ``mesh_axes`` (the process groups of the mesh's axes, e.g.
+    (dp, sp)) makes the rank's sum of squared errors normalise by the
+    global count; the caller sums the ranks' losses."""
+    occ = torch.sigmoid(model(feats, axis_name, compute_dtype))
+    d = soft._soft_edtsq_batch(occ, anisotropy, True, barrier, temperature,
+                               axis_name, kernels=kernels)
+    n = 1
+    for group in mesh_axes or ():
+        n *= dist.get_world_size(group)
+    return torch.sum((d - target_dt) ** 2) / (d.numel() * n)
 
 
 def make_train_step(model, optimizer, **kw):
@@ -146,3 +227,28 @@ def make_train_step(model, optimizer, **kw):
         return loss.detach()
 
     return step
+
+
+def make_sharded_train_step(model, mesh, optimizer,
+                            anisotropy=(1.0, 1.0, 1.0), temperature=0.3,
+                            barrier=None, dp_axis="dp", sp_axis="sp",
+                            compute_dtype=None, *, kernels=soft.KERNELS):
+    """Training step over a (dp, sp) ``DeviceMesh``, ``step(feats, target)
+    -> loss``, every rank calling it: the batch over dp, X over sp (feats
+    and target the whole batch on every rank, or DTensors placed
+    (Shard(0), Shard(1)); ``parallel.train.batch_block``). The convs
+    exchange halos over sp, the EDT rotates its sharded axis, and one
+    ``all_reduce`` sums the gradients and the loss over the mesh;
+    ``optimizer`` (over ``model.parameters()``) steps on every rank."""
+    if barrier is None:
+        raise ValueError("sharded training requires an explicit barrier")
+    axes = (mesh.get_group(dp_axis), mesh.get_group(sp_axis))
+
+    def local_loss(feats, target_dt):
+        return loss_fn(model, train.batch_block(feats, mesh, dp_axis, sp_axis),
+                       train.batch_block(target_dt, mesh, dp_axis, sp_axis),
+                       anisotropy, temperature, barrier, axes[1],
+                       compute_dtype, axes, kernels=kernels)
+
+    return train.replicated_step(model, optimizer, local_loss,
+                                 train.mesh_group(mesh))

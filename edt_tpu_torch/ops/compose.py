@@ -16,6 +16,37 @@ import torch
 from edt_tpu_torch.ops import core, minplus
 
 
+def default_minplus_fn(use_pallas=None):
+    """The min-plus backend with the JAX package's contract, (f2d,
+    start2d, end2d, w2, masked) -> d2d, walls applied by the caller
+    (``core.parabolic_pass_sq``): K1 (through its custom op) when
+    ``use_pallas``, default True when CUDA is available; None, the plain
+    path, otherwise. The name is the JAX package's: its Pallas kernel is
+    K1 here. K1 fuses the walls of a row's interior segment bounds
+    (black_border=False); the caller's walls, a min with the same
+    parabolas, leave the values unchanged."""
+    if use_pallas is None:
+        use_pallas = torch.cuda.is_available()
+    if not use_pallas:
+        return None
+
+    def fn(f2d, seg_start, seg_end, w2, masked=True):
+        return torch.ops.edt_tpu_torch.minplus_walls(
+            f2d, seg_start if masked else None, seg_end if masked else None,
+            w2, False, masked)
+
+    return fn
+
+
+def default_parabolic_fn(use_pallas=None):
+    """The whole parabolic pass on K1 (``minplus.make_parabolic_fn()``)
+    when ``use_pallas``, default True when CUDA is available; None, the
+    plain path, otherwise."""
+    if use_pallas is None:
+        use_pallas = torch.cuda.is_available()
+    return minplus.make_parabolic_fn() if use_pallas else None
+
+
 def _along_last(fn, axis, *tensors):
     """Move ``axis`` of every tensor last (contiguous), call fn, move back."""
     moved = [t.movedim(axis, -1).contiguous() for t in tensors]

@@ -151,15 +151,18 @@ def parabolic_pass_sq(
     labels: torch.Tensor,
     w: float,
     black_border: bool,
+    row_chunk: int = 256,
+    minplus_fn=None,
     binary: bool = False,
     parabolic_fn=None,
-    minplus_fn=None,
 ) -> torch.Tensor:
-    """Multi-label parabolic (FH) squared-EDT pass along axis -1.
+    """Multi-label parabolic (FH) squared-EDT pass along axis -1, with the
+    JAX package's signature.
 
     ``f`` holds squared distances from previous passes; ``labels`` drives
-    the per-segment restarts. ``parabolic_fn``, if given, runs the whole
-    pass (segment bounds, min-plus, walls); signature
+    the per-segment restarts. ``row_chunk``: rows a chunk of the
+    brute-force min-plus (``minplus_masked``). ``parabolic_fn``, if given,
+    runs the whole pass (segment bounds, min-plus, walls); signature
     (f2d, labels2d, w2, black_border, binary) -> d2d. Otherwise
     ``minplus_fn``, if given, replaces the brute-force min-plus alone, with
     the JAX package's signature (f2d, start2d, end2d, w2, masked) -> d2d;
@@ -183,7 +186,7 @@ def parabolic_pass_sq(
 
     if binary:
         if minplus_fn is None:
-            d = minplus_masked(f2, None, w2)
+            d = minplus_masked(f2, None, w2, row_chunk)
         else:
             d = minplus_fn(f2, f2, f2, w2, masked=False)
         d = d.reshape(shape)
@@ -191,7 +194,7 @@ def parabolic_pass_sq(
 
     start, end = segment_bounds(labels)
     if minplus_fn is None:
-        d = minplus_masked(f2, None, w2)
+        d = minplus_masked(f2, None, w2, row_chunk)
     else:
         d = minplus_fn(f2, start.reshape(-1, n), end.reshape(-1, n), w2,
                        masked=True)

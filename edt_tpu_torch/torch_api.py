@@ -7,8 +7,10 @@ Tensors in, tensors out, on the tensors' own device (K1 and the other
 kernels on a CUDA tensor, their plain versions on a CPU tensor). For the
 NumPy drop-in API use the top-level ``edt_tpu_torch`` module instead.
 
-``make_parabolic_fn`` is the counterpart of the JAX package's
-``default_parabolic_fn``. The sharded names (``default_mesh``,
+``default_minplus_fn`` and ``default_parabolic_fn`` keep the JAX
+package's meaning: the kernel-backed function (K1) with CUDA, None where
+the plain path runs; ``make_parabolic_fn`` builds the pass around any
+min-plus. The sharded names (``default_mesh``,
 ``edtsq_sharded``, ``edtsq_sharded_auto``, ``edt_sharded``,
 ``sdf_sharded``, ``edtsq_voxel_graph_sharded``) run over
 ``torch.distributed``, every rank calling them (``parallel.sharded``).
@@ -26,7 +28,14 @@ from edt_tpu_torch.models.soft import (
     soft_sdfsq,
     wall_counts_for,
 )
-from edt_tpu_torch.ops.compose import edt, edtsq, sdf, sdfsq
+from edt_tpu_torch.ops.compose import (
+    default_minplus_fn,
+    default_parabolic_fn,
+    edt,
+    edtsq,
+    sdf,
+    sdfsq,
+)
 from edt_tpu_torch.ops.minplus import make_parabolic_fn
 from edt_tpu_torch.ops.voxel_graph import edtsq_voxel_graph_torch
 from edt_tpu_torch.parallel.sharded import (
@@ -76,7 +85,7 @@ def each_device(labels, dt, ids=None):
 
 __all__ = [
     "edt", "edtsq", "sdf", "sdfsq",
-    "make_parabolic_fn",
+    "default_minplus_fn", "default_parabolic_fn", "make_parabolic_fn",
     "edtsq_voxel_graph_torch",
     "edtsq_from_heights", "multilabel_edtsq", "wall_counts_for",
     "soft_edtsq", "soft_sdfsq",

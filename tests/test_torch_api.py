@@ -127,6 +127,39 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
         edt_tpu_torch.edtsq(np.ones((3, 3), np.uint8))
 
 
+def test_default_minplus_and_parabolic_fn():
+    """``default_minplus_fn`` and ``default_parabolic_fn`` keep the JAX
+    package's meaning: None where the plain path runs (use_pallas False,
+    or None without CUDA), else the kernel-backed function, which on CPU
+    tensors takes K1's plain version; either gives the JAX package's
+    transform bit for bit."""
+    import jax
+    import jax.numpy as jnp
+
+    from edt_tpu.ops import compose as jcompose
+    import edt_tpu_torch.torch_api as tapi
+
+    assert {"default_minplus_fn", "default_parabolic_fn"} <= set(tapi.__all__)
+    for name in ("default_minplus_fn", "default_parabolic_fn"):
+        fn = getattr(tapi, name)
+        assert fn(use_pallas=False) is None
+        assert (fn() is None) == (not torch.cuda.is_available())
+    lab = _labels((10, 11, 12), seed=4)
+    an = (1.0, 2.0, 3.0)
+    for bb in (True, False):
+        ref = jax.jit(lambda v: jcompose.edtsq(v, an, bb))(  # noqa: B023
+            jnp.asarray(lab))
+        lt = torch.from_numpy(lab.view(np.int32))
+        for kw in ({"minplus_fn": tapi.default_minplus_fn(True)},
+                   {"parabolic_fn": tapi.default_parabolic_fn(True)}):
+            assert_same(tapi.edtsq(lt, an, bb, **kw).numpy(), np.asarray(ref))
+        m = torch.from_numpy((lab != 0).astype(np.uint8))
+        ref = jax.jit(lambda v: jcompose.edtsq(v, an, bb, None, True))(  # noqa: B023
+            jnp.asarray(m.numpy()))
+        assert_same(tapi.edtsq(m, an, bb, tapi.default_minplus_fn(True),
+                               True).numpy(), np.asarray(ref))
+
+
 def test_import_hygiene():
     """edt_tpu_torch imports neither jax nor anything of edt_tpu: every
     module of the package, found by walking it, imported in a fresh

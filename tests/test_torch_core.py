@@ -73,6 +73,20 @@ def test_parabolic_pass_sq(nd, black_border, binary):
         assert_same(got.numpy(), np.asarray(ref))
 
 
+def test_parabolic_pass_sq_positional_row_chunk():
+    """The fifth positional argument is JAX's ``row_chunk``: the
+    multi-label pass, bit-equal to the JAX package (it once landed in
+    ``binary`` and ran the binary pass, 37.85 off)."""
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 3, (8, 9, 10)).astype(np.int32)
+    f = (50 * rng.random((8, 9, 10))).astype(np.float32)
+    got = core.parabolic_pass_sq(torch.from_numpy(f), torch.from_numpy(labels),
+                                 2.0, True, 256)
+    ref = jcore.parabolic_pass_sq(jnp.asarray(f), jnp.asarray(labels),
+                                  jnp.float32(2.0), True, 256)
+    assert_same(got.numpy(), np.asarray(ref))
+
+
 def test_minplus_masked_segment_mask():
     """The segment-masked brute force (the oracle of the wall lemma)."""
     f, labels = _case(2, seed=5)
