@@ -66,7 +66,19 @@ paths:
   or send/recv); one NCCL rank (1 x 1), and four (2 x 2) where there are
   four cards, run it with SGD and Adam, the reduce-scatter step (Adam,
   two steps, against the psum step, its moments in block order
-  sp * n_dp + dp) and the UNet3D step at 2 x 128^3 (the halo exchange).
+  sp * n_dp + dp) and the UNet3D step at 2 x 128^3 (the halo exchange);
+- slice 12 (phase ``api_shard``): the NumPy API's auto-sharding over
+  every card of one process. With two cards or more: each of K1 to K6
+  launched on the last card while card 0 is current (on its default
+  stream and on a stream of its own) against card 0; ``bench.py``'s
+  volume at 768^3 through ``edtsq`` at the default threshold, sharded
+  (``sharded_dispatches``, K1 twice on every card) and bit-equal to the
+  call on card 0, then 767 x 768 x 766 with an open border, the bool
+  mask and ``sdf``; the voxel graph at 320^3 (doubled 640^3); the API's
+  wall ms on one card and on all of them, with the host copies in
+  threads and one card after another, a staged split (upload, passes,
+  rotations, gather) and each card's profile (copies, kernels, idle
+  share). With one card, the 768^3 call stays on it (counter 0).
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -2845,6 +2857,7 @@ def zero_all_launches():
     from edt_tpu_torch.ops import minplus
 
     minplus.launches = 0
+    minplus.card_launches.clear()
     zero_grad_launches()
     zero_soft_launches()
 
@@ -3555,6 +3568,372 @@ def phase_train_sharded(kernels, dev):
                              + "; ".join(failed[:10]))
 
 
+# ---------------- slice 12: the NumPy API over every card ----------------
+
+API_SHARD = 768  # bench.py's volume past the auto-shard threshold, 600^3
+API_SHARD_ODD = (767, 768, 766)  # divides no axis by 4
+API_SHARD_VG = 320  # the vg phase's volume (b), doubled 640^3 >= 600^3
+API_SHARD_REPS = 3
+
+
+def sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def wall_ms(fn, reps):
+    """Host-clock ms of ``fn()`` (a NumPy API call: it returns once its
+    result is on the host), each run after every card is idle."""
+    times = []
+    for _ in range(reps):
+        sync_cards()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def card_profile(fn, label):
+    """One run of ``fn`` under torch.profiler: its wall time and, on each
+    card, the device time of host-to-device copies, device-to-host
+    copies, peer copies (the rotations' blocks) and kernels (K1 apart),
+    and the card's idle share (1 - busy / wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    sync_cards()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync_cards()
+        wall = (time.perf_counter() - t0) * 1e3
+    cards = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or ev.name.startswith(
+                "Activity Buffer"):
+            continue
+        name = ev.name
+        kind = ("host to device" if name.startswith("Memcpy HtoD") else
+                "device to host" if name.startswith("Memcpy DtoH") else
+                "peer copies" if name.startswith(("Memcpy PtoP",
+                                                  "Memcpy DtoD")) else
+                "K1" if "minplus" in name else "other kernels")
+        c = cards.setdefault(ev.device_index, {})
+        c[kind] = c.get(kind, 0.0) + ev.time_range.elapsed_us() / 1e3
+    print(f"profile {label}: wall {wall:.2f} ms (a kind with no events "
+          f"was not captured)")
+    for i, c in sorted(cards.items()):
+        busy = sum(c.values())
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in sorted(c.items()))
+        print(f"  card {i}: busy {busy:.2f} ms ({parts}), idle share "
+              f"{max(0.0, 1 - busy / wall):.3f}")
+    return wall, cards
+
+
+def staged_call(fn):
+    """``fn()`` (a sharded API call) with every card synchronised between
+    its stages, each stage's host-clock ms: the upload (host volume to
+    slabs on the cards), the passes, the rotations (every
+    ``peer_exchange``: the pass rotations and the re-cuts of the slabs)
+    and the gather to the host. The barriers cost the stages' overlap:
+    their sum is no wall time of the call itself."""
+    from edt_tpu_torch.parallel import local, sharded
+
+    ms = {"upload": 0.0, "passes": 0.0, "rotations": 0.0, "gather": 0.0}
+    marks = {}
+    slabs_fn, exchange_fn = sharded.edtsq_slabs, local.peer_exchange
+
+    def timed_exchange(devices):
+        exchange = exchange_fn(devices)
+
+        def run(slabs, split_axis, concat_axis):
+            sync_cards()
+            t = time.perf_counter()
+            out = exchange(slabs, split_axis, concat_axis)
+            sync_cards()
+            ms["rotations"] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    def timed_slabs(*a, **kw):
+        sync_cards()
+        marks["in"] = time.perf_counter(), ms["rotations"]
+        out = slabs_fn(*a, **kw)
+        sync_cards()
+        marks["out"] = time.perf_counter(), ms["rotations"]
+        return out
+
+    sync_cards()
+    sharded.edtsq_slabs, local.peer_exchange = timed_slabs, timed_exchange
+    try:
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+    finally:
+        sharded.edtsq_slabs, local.peer_exchange = slabs_fn, exchange_fn
+    (t_in, rot_in), (t_out, rot_out) = marks["in"], marks["out"]
+    ms["upload"] = (t_in - t0) * 1e3 - rot_in
+    ms["passes"] = (t_out - t_in) * 1e3 - (rot_out - rot_in)
+    ms["gather"] = (t1 - t_out) * 1e3 - (ms["rotations"] - rot_out)
+    return ms
+
+
+def staged_one_card(lab, dev):
+    """The NumPy API's one-card path on ``lab`` (its uint32 labels viewed
+    as int32, as ``api._as_device_labels`` does) with the card synchronised
+    between its stages, each stage's host-clock ms: upload, passes,
+    gather."""
+    from edt_tpu_torch import api
+    from edt_tpu_torch.ops import compose
+
+    ms = {}
+    sync_cards()
+    t = time.perf_counter()
+    lt = torch.from_numpy(lab.view(np.int32)).to(dev)
+    sync_cards()
+    ms["upload"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    out = compose.edtsq(lt, ANISO, True, axis_order=api._sorted_axis_order(
+        np.asarray(ANISO, np.float32)))
+    sync_cards()
+    ms["passes"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    out.contiguous().cpu().numpy()
+    ms["gather"] = (time.perf_counter() - t) * 1e3
+    return ms
+
+
+def print_stages(label, runs):
+    print(f"api_shard (d): {label}, stages with every card synchronised "
+          f"between them (ms): " + "; ".join(
+              ", ".join(f"{k} {v:.1f}" for k, v in s.items()) for s in runs))
+
+
+def c6_run(labels, socc, dev):
+    """The forward (K1), bench.py's fwd+bwd at SMALL (K2, K3, K4) and the
+    softmin fwd+bwd (K5, K6) on ``dev``; the results on the host."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import compose
+
+    lt = torch.from_numpy(labels.view(np.int32)).to(dev)
+    barrier = float(np.sum((np.asarray(ANISO) * SMALL) ** 2))
+    fwd = compose.edtsq(lt, ANISO, True)
+    ml = fwd_bwd(lt, (lt != 0).to(torch.float32), True, barrier)
+    sm = value_and_grad(
+        lambda o, k: soft.soft_edtsq(o, (1.0, 1.0, 1.0), True,
+                                     float(3 * SMALL ** 2), SOFT_T,
+                                     kernels=k),
+        torch.from_numpy(socc).to(dev), soft.KERNELS)
+    return [t.cpu() for t in (fwd, *ml, *sm)]
+
+
+def check_c6(first, last):
+    """(a) Each of K1 to K6 on tensors on ``last`` while ``first`` is
+    current, on the default stream and on a stream of its own, against
+    the same calls on ``first``: K1 and K2 (the forwards) bit-equal, K3
+    and K4 (the gradient), K5 and K6 within the tolerances of the K5-K6
+    phase; and the NumPy API pinned to either card."""
+    from edt_tpu_torch import api
+    from edt_tpu_torch.ops import minplus
+
+    labels = make_labels(np.random.default_rng(3), SMALL)
+    socc = (np.random.default_rng(42).random((SMALL,) * 3)
+            > 0.5).astype(np.float32)
+    exact, close = Exact(), Close()
+    close5, close6 = Close(1e-5, atol=1e-4), Close(1e-4, atol=0.0,
+                                                     atol_rel=1e-4)
+    torch.cuda.set_device(first)
+    ref = c6_run(labels, socc, first)
+    for stream in (None, torch.cuda.Stream(last)):
+        tag = "its own stream" if stream else "the default stream"
+        zero_all_launches()
+        with (torch.cuda.stream(stream) if stream
+              else contextlib.nullcontext()):
+            # entering a stream's context makes its card current: undo that
+            torch.cuda.set_device(first)
+            got = c6_run(labels, socc, last)
+        want = {"K1": 2, "K2": 2, "K3": 2, "K4": 1, "K5": 3, "K6": 3}
+        if all_launches() != want or minplus.card_launches != {
+                last.index: 2}:
+            raise AssertionError(
+                f"C6 on card {last.index}, {tag}: launches {all_launches()},"
+                f" K1 by card {minplus.card_launches}; expected {want}")
+        if torch.cuda.current_device() != first.index:
+            raise AssertionError("C6: the current card changed")
+        for name, chk, g, r in zip(
+                ("K1 forward", "K2 forward", "K3-K4 gradient", "K5 forward",
+                 "K6 gradient"), (exact, exact, close, close5, close6),
+                got, ref):
+            chk.check(f"{name} on card {last.index} ({tag})", g, r)
+    exact.check(f"api.edtsq {SMALL}^3 device={last}",
+                api.edtsq(labels, ANISO, True, device=last),
+                api.edtsq(labels, ANISO, True, device=first))
+    for chk in (exact, close, close5, close6):
+        chk.raise_if_failed(f"C6: kernels on card {last.index}")
+    print(f"api_shard (a): K1 to K6 on card {last.index} while card "
+          f"{first.index} is current, on the default stream and on its own,"
+          f" equal to card {first.index} (K1, K2 bit-equal; K3-K6 within "
+          f"tolerance); api.edtsq device={last} bit-equal to device={first}")
+
+
+def sharded_api_case(exact, name, fn, ref_fn, k1_each, n):
+    """``fn()`` (the API at its default, sharded over n cards) counted:
+    sharded_dispatches, K1 ``k1_each`` times on every card and no other
+    kernel; bit-equal to ``ref_fn()`` (the API on card 0). Returns the K1
+    launches by card of ``fn()``."""
+    from edt_tpu_torch.ops import minplus
+    from edt_tpu_torch.utils.profiling import counters
+
+    dispatches = k1_each // 2
+    counters.reset()
+    zero_all_launches()
+    got = fn()
+    want = {k: 0 for k in all_launches()}
+    want["K1"] = k1_each * n
+    per_card = {i: k1_each for i in range(n)}
+    if (counters.sharded_dispatches != dispatches
+            or all_launches() != want or minplus.card_launches != per_card):
+        raise AssertionError(
+            f"{name}: sharded_dispatches {counters.sharded_dispatches}, "
+            f"launches {all_launches()}, K1 by card {minplus.card_launches};"
+            f" expected {dispatches}, {want}, {per_card}")
+    exact.check(name, torch.from_numpy(got), torch.from_numpy(ref_fn()))
+    print(f"api_shard: {name}: sharded_dispatches {dispatches}, K1 by card "
+          f"{per_card}, bit-equal to the API on card 0")
+    return per_card
+
+
+def phase_api_shard(kernels, dev):
+    """The NumPy API's auto-sharding over every card of one process.
+    Two or more cards: (a) C6, every kernel launched on a card that is not
+    the current one; (b) bench.py's volume at 768^3 through the API at the
+    default threshold, sharded and bit-equal to card 0, and 767 x 768 x
+    766 (black_border off), its bool mask and ``sdf``; (c) the voxel graph
+    at 320^3; (d) the API's wall ms on one card and on all (host copies in
+    threads, and in turn), a staged split and each card's profile. One
+    card: the 768^3 call stays on it."""
+    from edt_tpu_torch import api
+    from edt_tpu_torch.ops import minplus
+    from edt_tpu_torch.parallel import local
+    from edt_tpu_torch.utils.profiling import counters
+
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    n = torch.cuda.device_count()
+    first = torch.device("cuda", 0)
+    lab = make_labels(np.random.default_rng(42), API_SHARD)
+    full = f"{API_SHARD}^3"
+    if n < 2:
+        counters.reset()
+        zero_all_launches()
+        with Capture() as cap:
+            out = api.edtsq(lab, ANISO, True)
+        if (counters.sharded_dispatches != 0 or minplus.launches != 2
+                or minplus.card_launches != {0: 2}):
+            raise AssertionError(
+                f"api_shard on one card: sharded_dispatches "
+                f"{counters.sharded_dispatches}, K1 by card "
+                f"{minplus.card_launches}; expected 0 and {{0: 2}}")
+        if out.shape != lab.shape or not np.isfinite(out).all():
+            raise AssertionError(f"api_shard: {full} wrong shape or values")
+        per_card = dict(minplus.card_launches)
+        one = wall_ms(lambda: api.edtsq(lab, ANISO, True), API_SHARD_REPS)
+        print(f"api_shard: one card ({smi[0]}): the {full} API call stays on "
+              f"it (sharded_dispatches 0, K1 by card {per_card}); "
+              f"{statistics.median(one):.1f} ms median of "
+              f"{[round(t, 1) for t in one]}. (a) kernels on a card that is "
+              f"not the current one, (b) the sharded dispatch, (c) the "
+              f"sharded voxel graph and (d) the n-card times need two cards:"
+              f" not run")
+        print_stages(f"{full} on one card",
+                     [staged_one_card(lab, first) for _ in range(2)])
+        card_profile(lambda: api.edtsq(lab, ANISO, True),
+                     f"{full} API call, one card")
+    else:
+        last = torch.device("cuda", n - 1)
+        print(f"api_shard: {n} cards: " + "; ".join(smi))
+        check_c6(first, last)
+        exact = Exact()
+        # (b) the dispatch at full width
+        with Capture() as cap:
+            per_card = sharded_api_case(
+                exact, f"{full} edtsq black_border",
+                lambda: api.edtsq(lab, ANISO, True),
+                lambda: api.edtsq(lab, ANISO, True, device=first), 2, n)
+        odd = lab[tuple(slice(0, s) for s in API_SHARD_ODD)]
+        sharded_api_case(exact, "x".join(map(str, API_SHARD_ODD))
+                         + " edtsq, open border",
+                         lambda: api.edtsq(odd, ANISO, False),
+                         lambda: api.edtsq(odd, ANISO, False, device=first),
+                         2, n)
+        del odd
+        mask = lab != 0
+        sharded_api_case(exact, f"{full} bool edtsq (binary path)",
+                         lambda: api.edtsq(mask, ANISO, True),
+                         lambda: api.edtsq(mask, ANISO, True, device=first),
+                         2, n)
+        del mask
+        sharded_api_case(exact, f"{full} sdf", lambda: api.sdf(lab, ANISO, True),
+                         lambda: api.sdf(lab, ANISO, True, device=first), 4, n)
+        # (c) the voxel graph, gated on its doubled size
+        rng = np.random.default_rng(11)
+        vdata = make_labels(rng, API_SHARD_VG)
+        vgraph = vg_graph(rng, vdata.shape)
+        sharded_api_case(exact, f"{API_SHARD_VG}^3 voxel graph",
+                         lambda: api.edtsq(vdata, ANISO, True,
+                                           voxel_graph=vgraph),
+                         lambda: api.edtsq(vdata, ANISO, True,
+                                           voxel_graph=vgraph, device=first),
+                         2, n)
+        exact.raise_if_failed("api_shard")
+        # (d) times: one card and every card in turns, and every card with
+        # the host copies one card after another
+        runs = {"one card": lambda: api.edtsq(lab, ANISO, True, device=first),
+                f"{n} cards": lambda: api.edtsq(lab, ANISO, True)}
+        threaded = local._on_cards
+
+        def in_turn():
+            local._on_cards = lambda fn, k: [fn(i) for i in range(k)]
+            try:
+                return api.edtsq(lab, ANISO, True)
+            finally:
+                local._on_cards = threaded
+
+        runs[f"{n} cards, host copies in turn"] = in_turn
+        times = {k: [] for k in runs}
+        for rep in range(API_SHARD_REPS):
+            for k in (list(runs) if rep % 2 == 0 else list(runs)[::-1]):
+                times[k] += wall_ms(runs[k], 1)
+        for k, ts in times.items():
+            print(f"api_shard (d): {full} API call, {k}: "
+                  f"{statistics.median(ts):.1f} ms median of "
+                  f"{[round(t, 1) for t in ts]} ({smi[0]})")
+        print_stages(f"{full} on one card",
+                     [staged_one_card(lab, first) for _ in range(2)])
+        print_stages(f"{full} over {n} cards",
+                     [staged_call(runs[f"{n} cards"]) for _ in range(2)])
+        card_profile(runs["one card"], f"{full} API call, one card")
+        card_profile(runs[f"{n} cards"], f"{full} API call, {n} cards")
+    with torch.no_grad():
+        e = shard_kernel_entry("K1", cap.calls["K1"], None)
+    del cap
+    shape = e.pop("shape")
+    launches = sum(per_card.values())
+    print(f"  K1 alone on the first call of the {full} API call "
+          f"{tuple(shape)}: {e['ms']:.3f} ms, plain {e['plain_ms']:.1f} ms, "
+          f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}); launches by card "
+          f"{per_card} ({smi[0]})")
+    kernels.append(dict(e, name=f"{e['name']} (api_shard: the NumPy API at "
+                        f"{full}, {n} card{'s' if n > 1 else ''})",
+                        launches=launches,
+                        launches_per_card=[per_card.get(i, 0)
+                                           for i in range(n)]))
+
+
 def main(only=()) -> int:
     """Every phase; with ``only`` (command-line words), the build and the
     phases whose names contain one of them, and no result lines."""
@@ -3624,7 +4003,9 @@ def main(only=()) -> int:
               ("sharded: torch.distributed ranks",
                lambda: phase_sharded(kernels, dev)),
               ("train_sharded: the trainers' sharded steps",
-               lambda: phase_train_sharded(kernels, dev))]
+               lambda: phase_train_sharded(kernels, dev)),
+              ("api_shard: the NumPy API over every card",
+               lambda: phase_api_shard(kernels, dev))]
     if only:
         phases = [(name, fn) for name, fn in phases if name == "build"
                   or any(w.lower() in name.lower() for w in only)]

@@ -10,15 +10,20 @@ the device path takes fall back to the exact host implementation, as the
 JAX API's do past its device limits, except under ``voxel_graph=``, which
 has no host path there either and runs on the device at any length.
 
-Unlike the JAX API, this one never shards a volume on its own (and reads
-no ``EDT_TPU_SHARD_MIN_VOXELS``): JAX shards only where one process
-addresses every device, and a torch process drives one card, which is
-JAX's multi-process case, where volumes go through the sharded functions
-explicitly. Here they are ``edt_tpu_torch.parallel``'s, called by every
-rank of a process group; ``counters.sharded_dispatches`` stays 0.
+As the JAX API does, this one shards a 3-D volume of at least
+``EDT_TPU_SHARD_MIN_VOXELS`` voxels (default 600^3) over every card when
+the process sees more than one and no ``device=`` pins the call
+(``_shard_devices``): one process drives them all (``parallel.local``),
+bit-identical to one card, and ``counters.sharded_dispatches`` counts the
+call. The voxel graph does the same on its doubled size. Under a
+``torch.distributed`` group of more than one rank, JAX's multi-process
+case, nothing auto-shards: every rank calls ``edt_tpu_torch.parallel``'s
+sharded functions explicitly.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -46,6 +51,30 @@ def _device(device) -> torch.device:
                 "the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _shard_min_voxels() -> int:
+    """Volumes at least this big auto-shard over every card (when there
+    are several): ``EDT_TPU_SHARD_MIN_VOXELS``, default 600^3, the JAX
+    package's."""
+    return int(os.environ.get("EDT_TPU_SHARD_MIN_VOXELS", str(600 ** 3)))
+
+
+def _shard_devices(device):
+    """The cards a NumPy call shards over, or None (counterpart of the
+    JAX API's ``_all_devices_addressable``): None where the caller pinned
+    ``device``, where fewer than two cards are visible, and under an
+    initialised ``torch.distributed`` group of more than one rank, where
+    each rank would otherwise take every card. The host-fallback path
+    never asks."""
+    if device is not None or torch.cuda.device_count() < 2:
+        return None
+    import torch.distributed as dist
+
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _device_max_axis(device: torch.device) -> int:
@@ -132,9 +161,10 @@ def edtsq(
     ``parallel`` and ``order`` are accepted for API compatibility.
     ``binary=True`` treats any nonzero voxel as one foreground label; bool
     inputs take that path automatically. ``device`` selects the torch
-    device (default CUDA).
+    device (default CUDA; a 3-D volume of at least ``_shard_min_voxels()``
+    voxels shards over every card where there are several).
     """
-    device = _device(device)
+    dev = _device(device)
     if isinstance(data, list):
         data = np.array(data)
     data = np.asarray(data)
@@ -174,21 +204,31 @@ def edtsq(
         counters.voxel_graph_calls += 1
         result = vg.edtsq_voxel_graph(data, voxel_graph, anisotropy,
                                       bool(black_border), arr_order, device)
-    elif max(data.shape) > _device_max_axis(device):
+    elif max(data.shape) > _device_max_axis(dev):
         counters.host_fallbacks += 1
         result = host_reference.edtsq_host(data, anisotropy, bool(black_border))
     else:
         labels = _as_device_labels(data)
         if not labels.flags.writeable:
             labels = labels.copy(order="K")
-        out = compose.edtsq(
-            torch.from_numpy(labels).to(device),
-            anisotropy,
-            bool(black_border),
-            binary=take_binary,
-            axis_order=_sorted_axis_order(anisotropy),
-        )
-        result = out.contiguous().cpu().numpy()
+        cards = (_shard_devices(device) if labels.ndim == 3
+                 and labels.size >= _shard_min_voxels() else None)
+        if cards:
+            from edt_tpu_torch.parallel import local
+
+            counters.sharded_dispatches += 1
+            result = local.edtsq_sharded_local(
+                labels, anisotropy, bool(black_border), binary=take_binary,
+                devices=cards)
+        else:
+            out = compose.edtsq(
+                torch.from_numpy(labels).to(dev),
+                anisotropy,
+                bool(black_border),
+                binary=take_binary,
+                axis_order=_sorted_axis_order(anisotropy),
+            )
+            result = out.contiguous().cpu().numpy()
 
     if arr_order == "F":
         result = np.asfortranarray(result)

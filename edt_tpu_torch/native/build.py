@@ -1,8 +1,10 @@
-"""Build the native RLE kit: ``python -m edt_tpu_torch.native.build``.
+"""Build the native RLE kit: ``python -m edt_tpu_torch.native.build
+[--force]``.
 
 ``rle.cpp`` becomes ``edt_tpu_torch/_build/rle-<hash>.so``, the hash over
 the source and the flags, so an edited source rebuilds and an unchanged
-one is reused. ``rle_native`` calls ``build()`` at first use.
+one is reused (``--force``: rebuilt all the same). ``rle_native`` calls
+``build()`` at first use.
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ def target() -> Path:
     return BUILD_DIR / f"rle-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """The built kit, compiling it first if this source was not built."""
+def build(force=False) -> Path:
+    """The built kit, compiling it first if this source was not built, or
+    if ``force``."""
     out = target()
-    if out.exists():
+    if out.exists() and not force:
         return out
     cxx = compiler()
     if cxx is None:
@@ -46,4 +49,6 @@ def build() -> Path:
 
 
 if __name__ == "__main__":
-    print(build())
+    import sys
+
+    print(build(force="--force" in sys.argv[1:]))

@@ -145,12 +145,13 @@ def minplus_argmin(f, w2, walls=None, emit_offsets=False, *,
     if R == 0 or n == 0:
         return d, arg
     long_rows = _long_rows or n > MAX_AXIS
-    err = _kernel()(
-        f.data_ptr(), None if walls is None else walls.data_ptr(),
-        d.data_ptr(), arg.data_ptr(), R, n, core.f32(w2),
-        _WALL_KINDS[None if walls is None else walls.dtype],
-        (1 if adt == torch.int16 else 2) if emit_offsets else 0,
-        int(long_rows), torch.cuda.current_stream(f.device).cuda_stream)
+    with torch.cuda.device(f.device):  # the runtime launches on the current card
+        err = _kernel()(
+            f.data_ptr(), None if walls is None else walls.data_ptr(),
+            d.data_ptr(), arg.data_ptr(), R, n, core.f32(w2),
+            _WALL_KINDS[None if walls is None else walls.dtype],
+            (1 if adt == torch.int16 else 2) if emit_offsets else 0,
+            int(long_rows), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"minplus_argmin kernel launch failed: cudaError {err}")
     launches += 1

@@ -142,9 +142,11 @@ def _check_cuda(name, g, links, link_dtypes):
 def _launch(fn, name, g, links, kind, off_sent, *mode):
     out = torch.empty_like(g)
     R, n = g.shape
-    err = fn(g.data_ptr(), links.data_ptr(), out.data_ptr(), R, n, kind,
-             0 if off_sent is None else int(off_sent), int(off_sent is not None),
-             *mode, torch.cuda.current_stream(g.device).cuda_stream)
+    with torch.cuda.device(g.device):  # the runtime launches on the current card
+        err = fn(g.data_ptr(), links.data_ptr(), out.data_ptr(), R, n, kind,
+                 0 if off_sent is None else int(off_sent),
+                 int(off_sent is not None), *mode,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out

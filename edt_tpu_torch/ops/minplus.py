@@ -7,7 +7,9 @@ ctypes); ``minplus_walls_plain`` is its plain PyTorch version.
 
 ``minplus_walls`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors. ``launches`` counts the kernel launches,
-``long_launches`` those in its long-row mode. Rows up to ``MAX_AXIS`` run
+``long_launches`` those in its long-row mode and ``card_launches`` those
+on each card (by device index). Every launch runs on its tensor's card,
+whichever card is current. Rows up to ``MAX_AXIS`` run
 the kernel's shared-memory mode, longer ones its long-row mode (the row
 read from device memory), so every length runs on the card.
 
@@ -38,6 +40,7 @@ PLAIN_COST_BYTES = 1 << 30
 
 launches = 0
 long_launches = 0
+card_launches: dict[int, int] = {}
 
 
 def _check(name, t, dtype, shape, device):
@@ -127,15 +130,16 @@ def minplus_walls(f, ss, se, w2, black_border, masked, *, _long_rows=False):
     if R == 0 or n == 0:
         return out
     long_rows = _long_rows or n > MAX_AXIS
-    err = _kernel()(f.data_ptr(), ss.data_ptr() if masked else None,
-                    se.data_ptr() if masked else None, out.data_ptr(), R, n,
-                    core.f32(w2), int(masked), int(black_border),
-                    int(long_rows),
-                    torch.cuda.current_stream(f.device).cuda_stream)
+    with torch.cuda.device(f.device):  # the runtime launches on the current card
+        err = _kernel()(f.data_ptr(), ss.data_ptr() if masked else None,
+                        se.data_ptr() if masked else None, out.data_ptr(), R,
+                        n, core.f32(w2), int(masked), int(black_border),
+                        int(long_rows), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"minplus_walls kernel launch failed: cudaError {err}")
     launches += 1
     long_launches += long_rows
+    card_launches[f.device.index] = card_launches.get(f.device.index, 0) + 1
     return out
 
 

@@ -131,9 +131,10 @@ def softmin(f, w2, t, *, _long_rows=False):
     if R == 0 or n == 0:
         return d
     long_rows = _long_rows or n > MAX_AXIS
-    err = _kernels()[0](f.data_ptr(), d.data_ptr(), R, n, core.f32(w2),
-                        core.f32(t), int(long_rows),
-                        torch.cuda.current_stream(f.device).cuda_stream)
+    with torch.cuda.device(f.device):  # the runtime launches on the current card
+        err = _kernels()[0](f.data_ptr(), d.data_ptr(), R, n, core.f32(w2),
+                            core.f32(t), int(long_rows),
+                            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"softmin kernel launch failed: cudaError {err}")
     launches += 1
@@ -163,10 +164,11 @@ def softmin_grad(f, d, g, w2, t, *, _long_rows=False):
     if R == 0 or n == 0:
         return df, e
     long_rows = _long_rows or n > GRAD_MAX_AXIS
-    err = _kernels()[1](f.data_ptr(), d.data_ptr(), g.data_ptr(),
-                        df.data_ptr(), e.data_ptr(), R, n, core.f32(w2),
-                        core.f32(t), int(long_rows),
-                        torch.cuda.current_stream(f.device).cuda_stream)
+    with torch.cuda.device(f.device):  # the runtime launches on the current card
+        err = _kernels()[1](f.data_ptr(), d.data_ptr(), g.data_ptr(),
+                            df.data_ptr(), e.data_ptr(), R, n, core.f32(w2),
+                            core.f32(t), int(long_rows),
+                            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"softmin_grad kernel launch failed: cudaError {err}")
     grad_launches += 1

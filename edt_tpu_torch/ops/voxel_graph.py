@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from edt_tpu_torch.ops import compose
+from edt_tpu_torch.utils.profiling import counters
 
 _X, _Y, _Z = 0, 2, 4  # bit shifts of the +x, +y, +z edges
 
@@ -136,14 +137,19 @@ def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False):
 def edtsq_voxel_graph(data, graph, anisotropy, black_border, arr_order,
                       device):
     """Squared EDT of a 2-D or 3-D NumPy volume constrained by a directed
-    voxel connectivity graph; computed on ``device``, returned as NumPy.
+    voxel connectivity graph; computed on ``device`` (the API's argument:
+    None is CUDA), returned as NumPy.
 
     Only the original-size mask and graph go to the device, and only the
-    original-size result comes back: the doubled volume stays there. It
-    runs on one card at any size: a process drives one card, so a doubled
-    volume too large for it goes through
-    ``parallel.edtsq_voxel_graph_sharded`` explicitly (see ``api``).
+    original-size result comes back: the doubled volume stays there. A 3-D
+    volume whose doubled size reaches the API's auto-shard threshold
+    shards over every card where there are several (``api._shard_devices``,
+    ``parallel.local``): each card doubles its own slab, so the 8x volume
+    never exists whole on one card.
     """
+    from edt_tpu_torch import api
+
+    dev = api._device(device)
     data = np.asarray(data)
     graph = np.asarray(graph)
     if graph.shape != data.shape:
@@ -173,12 +179,23 @@ def edtsq_voxel_graph(data, graph, anisotropy, black_border, arr_order,
     else:
         fg = (data != 0).astype(np.uint8)
 
-    half = [float(a) for a in anisotropy / np.float32(2.0)]
-    out = _edtsq_doubled(
-        torch.from_numpy(np.ascontiguousarray(fg)).to(device),
-        torch.from_numpy(np.ascontiguousarray(graph)).to(device),
-        half, bool(black_border))
-    sub = out.contiguous().cpu().numpy()
+    # the doubled volume holds 8x the voxels: the gate is on its size
+    cards = (api._shard_devices(device)
+             if nd == 3 and data.size * 8 >= api._shard_min_voxels() else None)
+    if cards:
+        from edt_tpu_torch.parallel import local
+
+        counters.sharded_dispatches += 1
+        sub = local.edtsq_voxel_graph_sharded_local(
+            np.ascontiguousarray(fg), np.ascontiguousarray(graph),
+            anisotropy, bool(black_border), devices=cards)
+    else:
+        half = [float(a) for a in anisotropy / np.float32(2.0)]
+        out = _edtsq_doubled(
+            torch.from_numpy(np.ascontiguousarray(fg)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(graph)).to(dev),
+            half, bool(black_border))
+        sub = out.contiguous().cpu().numpy()
 
     if arr_order == "F":
         # transposed view; api.edtsq makes the F-order copy

@@ -1,8 +1,9 @@
-"""Multi-card execution over ``torch.distributed`` (counterpart of
-``edt_tpu.parallel``): the slab-sharded transforms (``sharded``) and the
+"""Multi-card execution (counterpart of ``edt_tpu.parallel``): the
+slab-sharded transforms over ``torch.distributed`` (``sharded``), the
 (dp, sp) mesh of the trainers' sharded steps (``train``; the steps are
 ``models.distance_net.make_sharded_train_step`` and
-``models.unet3d.make_sharded_train_step``)."""
+``models.unet3d.make_sharded_train_step``), and the NumPy API's
+auto-sharding over every card of one process (``local``, internal)."""
 
 from edt_tpu_torch.parallel.sharded import (
     default_mesh,

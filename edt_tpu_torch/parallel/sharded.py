@@ -14,7 +14,9 @@ and each 1-D pass runs on rows that lie whole on one rank:
 
 Each rank's passes go through ``compose``/``core`` as on one card, so K1
 sees whole rows. The labels ride the same rotation, except on the binary
-path, which needs none.
+path, which needs none. The slab body (``edtsq_slabs``, over a list of
+slabs and an exchange) also serves ``parallel.local``, the NumPy API's
+one-process form over several cards.
 
 The JAX concepts map so:
 
@@ -123,17 +125,28 @@ def rotate(x, group, split_axis, concat_axis):
 # ---------------- slabs in, DTensor out ----------------
 
 
+def pad_axis(x, axis, size, black_border, edge=None):
+    """Pad ``axis`` of ``x`` to ``size``: zeros under black_border, else
+    ``edge`` repeated, a plane of size 1 along ``axis`` (default: x's
+    last; see module doc)."""
+    shape = list(x.shape)
+    shape[axis] = size - x.shape[axis]
+    if shape[axis] <= 0:
+        return x
+    if black_border:
+        fill = x.new_zeros(shape)
+    else:
+        if edge is None:
+            edge = x.narrow(axis, x.shape[axis] - 1, 1)
+        fill = edge.expand(shape)
+    return torch.cat([x, fill], dim=axis)
+
+
 def _pad_rotation_axes(x, nshards, black_border, pad_axes=(0, 2)):
     """Pad ``x`` so every axis of ``pad_axes`` divides ``nshards``: zeros
     under black_border, else the edge plane repeated (see module doc)."""
     for a in pad_axes:
-        p = (-x.shape[a]) % nshards
-        if p:
-            edge = x.narrow(a, x.shape[a] - 1, 1)
-            fill = torch.zeros_like(edge) if black_border else edge
-            size = list(x.shape)
-            size[a] = p
-            x = torch.cat([x, fill.expand(size)], dim=a)
+        x = pad_axis(x, a, -(-x.shape[a] // nshards) * nshards, black_border)
     return x
 
 
@@ -157,38 +170,100 @@ def _local_slab(x, mesh, axis_name, black_border, pad_axes=(0, 2)):
     return x[r * c:(r + 1) * c], shape
 
 
+def crop(slab, shape, r):
+    """Slab ``r`` (c rows of the padded volume) cropped to the volume's
+    ``shape``: rows [r c, min((r + 1) c, s0)), DTensor's own uneven
+    layout, and the first shape[a] of every other axis."""
+    c = slab.shape[0]
+    slab = slab[:max(0, min(c, shape[0] - r * c))]
+    for a in range(1, slab.dim()):
+        slab = slab.narrow(a, 0, shape[a])
+    return slab
+
+
 def _to_dtensor(local, shape, mesh, axis_name):
     """Crop a padded slab to the volume's ``shape`` and wrap it as a
-    DTensor [Shard(0)]: rank r keeps rows [r c, min((r + 1) c, s0)) of
-    its c-row slab, DTensor's own uneven layout."""
-    c = local.shape[0]
-    r = mesh.get_local_rank(axis_name)
-    local = local[:max(0, min(c, shape[0] - r * c))]
-    for a in range(1, local.dim()):
-        local = local.narrow(a, 0, shape[a])
+    DTensor [Shard(0)]."""
+    local = crop(local, shape, mesh.get_local_rank(axis_name))
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local.contiguous(), mesh, [Shard(0)],
                               run_check=False, shape=torch.Size(shape),
                               stride=stride)
 
 
+def edtsq_slabs(labs, anis, black_border, exchange, binary, minplus_fn,
+                parabolic_fn):
+    """The transform of a list of slabs of one volume, whose axes 0 (the
+    slabs) and 2 divide the slab count n, each slab on its own device.
+    ``exchange(slabs, split_axis, concat_axis)`` is the all-to-all over
+    them: the slabs with ``split_axis`` cut into n blocks, block j of
+    every slab joined in slab order along ``concat_axis`` as slab j.
+
+    SPMD over a process group, the list holds the rank's own slab
+    (``_group_exchange``); one process over several cards, one slab a
+    card (``parallel.local``). Pass 1 (axis 2, the closed form) and pass 2
+    (axis 1) run on each slab; pass 3 (axis 0) between two exchanges."""
+    fs = [compose._along_last(
+        lambda lb: core.rp_pass_sq(lb, anis[2], black_border), 2, lab)
+        for lab in labs]
+    fs = [compose.parabolic_along(f, lab, 1, anis[1], black_border, binary,
+                                  parabolic_fn, minplus_fn)
+          for f, lab in zip(fs, labs)]
+    fs = exchange(fs, 2, 0)
+    labs = [None] * len(fs) if binary else exchange(labs, 2, 0)
+    fs = [compose.parabolic_along(f, lab, 0, anis[0], black_border, binary,
+                                  parabolic_fn, minplus_fn)
+          for f, lab in zip(fs, labs)]
+    return exchange(fs, 0, 2)
+
+
+def _group_exchange(group):
+    """``edtsq_slabs``'s exchange for one rank's slab: ``all_to_all``."""
+    return lambda slabs, split_axis, concat_axis: [
+        all_to_all(slabs[0], group, split_axis, concat_axis)]
+
+
 def _edtsq_slab(lab, anis, black_border, group, binary, minplus_fn,
                 parabolic_fn):
-    """The transform of a slab whose axes 0 (over the ranks) and 2 divide
-    the rank count."""
-    f = compose._along_last(
-        lambda lb: core.rp_pass_sq(lb, anis[2], black_border), 2, lab)
-    f = compose.parabolic_along(f, lab, 1, anis[1], black_border, binary,
-                                parabolic_fn, minplus_fn)
-    f = all_to_all(f, group, 2, 0)
-    lab = None if binary else all_to_all(lab, group, 2, 0)
-    f = compose.parabolic_along(f, lab, 0, anis[0], black_border, binary,
-                                parabolic_fn, minplus_fn)
-    return all_to_all(f, group, 0, 2)
+    """``edtsq_slabs`` on this rank's slab over ``group``."""
+    return edtsq_slabs([lab], anis, black_border, _group_exchange(group),
+                       binary, minplus_fn, parabolic_fn)[0]
+
+
+def doubled_slab(fg, graph, shape, r, n, black_border):
+    """Slab ``r`` of the voxel graph's doubled volume, from slab r of the
+    foreground mask and the graph (c rows of the volume padded along
+    axis 0 to n c), axis 2 padded to a multiple of n. black_border zeroes
+    the *original* volume's last doubled plane along each axis, which
+    under padding may lie inside an earlier slab."""
+    s0, s1, s2 = shape
+    D = doubled_3d_torch(fg, graph.to(torch.uint8), False)
+    if black_border:
+        D[:, :, 2 * s2 - 1] = 0
+        D[:, 2 * s1 - 1, :] = 0
+        tail_slab, tail_off = divmod(2 * s0 - 1, D.shape[0])
+        if r == tail_slab:
+            D[tail_off] = 0
+    return _pad_rotation_axes(D, n, black_border, (2,))
 
 
 def _anisotropy(anisotropy):
     return [core.f32(a) for a in np.asarray(anisotropy, np.float32).reshape(3)]
+
+
+def half_anisotropy(anisotropy):
+    """The voxel graph's pitches on the doubled volume, halved in f32."""
+    return _anisotropy(np.asarray(anisotropy, np.float32).reshape(3)
+                       / np.float32(2.0))
+
+
+def pass_order(anisotropy):
+    """``edtsq_sharded_auto``'s permutation of the volume's axes: the
+    largest pitch first (the sharded axis), ascending-pitch pass order
+    (ties: the default order), as the single-card API orders its passes."""
+    anis = np.asarray(anisotropy, np.float32).reshape(3)
+    order = sorted(range(3), key=lambda a: (float(anis[a]), -a))
+    return order[2], order[1], order[0]
 
 
 def _check_3d(x):
@@ -236,8 +311,7 @@ def edtsq_sharded_auto(labels, anisotropy, black_border=False, *, mesh=None,
     if mesh is None:
         mesh = default_mesh(axis_name)
     anis = np.asarray(anisotropy, np.float32).reshape(3)
-    order = sorted(range(3), key=lambda a: (float(anis[a]), -a))
-    perm = (order[2], order[1], order[0])  # sharded axis 0: largest pitch
+    perm = pass_order(anis)
     kw = dict(mesh=mesh, axis_name=axis_name, binary=binary,
               minplus_fn=minplus_fn, parabolic_fn=parabolic_fn)
     if perm == (0, 1, 2):
@@ -261,26 +335,17 @@ def edtsq_voxel_graph_sharded(labels, graph, anisotropy, black_border=False,
     last array axis (C order).
     """
     _check_3d(labels)
-    n = mesh.size()
     lab, shape = _local_slab(labels, mesh, axis_name, black_border, (0,))
     g, _ = _local_slab(graph, mesh, axis_name, black_border, (0,))
-    s0, s1, s2 = shape
     fg = lab > 0 if lab.is_floating_point() else lab != 0
-    D = doubled_3d_torch(fg, g.to(torch.uint8), False)
-    if black_border:
-        D[:, :, 2 * s2 - 1] = 0
-        D[:, 2 * s1 - 1, :] = 0
-        tail_rank, tail_off = divmod(2 * s0 - 1, D.shape[0])
-        if mesh.get_local_rank(axis_name) == tail_rank:
-            D[tail_off] = 0
-    D = _pad_rotation_axes(D, n, black_border, (2,))
-    half = np.asarray(anisotropy, np.float32).reshape(3) / np.float32(2.0)
+    D = doubled_slab(fg, g, shape, mesh.get_local_rank(axis_name),
+                     mesh.size(), black_border)
     parabolic_fn = (None if minplus_fn is not None
                     else minplus.make_parabolic_fn())
-    d2 = _edtsq_slab(D, _anisotropy(half), black_border,
+    d2 = _edtsq_slab(D, half_anisotropy(anisotropy), black_border,
                      mesh.get_group(axis_name), True, minplus_fn,
                      parabolic_fn)
-    return _to_dtensor(d2[::2, ::2, :2 * s2:2], shape, mesh, axis_name)
+    return _to_dtensor(d2[::2, ::2, :2 * shape[2]:2], shape, mesh, axis_name)
 
 
 def edt_sharded(labels, anisotropy, black_border=False, *, mesh,

@@ -7,6 +7,8 @@ machine without it:
     EDT_TPU_TEST_PLATFORM=cuda python -m pytest tests/test_torch_cuda.py -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -556,3 +558,71 @@ def test_binary_grad_scan_kernel_lanes(cuda, n):
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
             again = grad.binary_grad_scan(g, ot, off_sent=s)
             assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.fixture
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a launch on a card that is not "
+                    "the current one")
+    return torch.device("cuda", 0), torch.device(
+        "cuda", torch.cuda.device_count() - 1)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card(two_cards, monkeypatch):
+    """Each of K1 to K6 on tensors on the last card, while card 0 is
+    current, gives what it gives on card 0 (K1, K2 bit-equal; K3 to K6
+    within the tolerances above), also under a non-default stream there;
+    the NumPy API pinned to either card, and sharded over every card,
+    gives the same bits."""
+    from edt_tpu_torch import api
+    from edt_tpu_torch.utils.profiling import counters
+
+    first, last = two_cards
+    rng = np.random.default_rng(3)
+    f, cnt = _argmin_rows(300, rng)
+    g = rng.uniform(-1, 1, f.shape).astype(np.float32)
+    fs = _soft_rows(300, rng)
+
+    def run(dev):
+        ft = torch.from_numpy(f).to(dev)
+        ct = torch.from_numpy(cnt).to(dev)
+        gt = torch.from_numpy(g).to(dev)
+        ss, se = core.segment_bounds(torch.from_numpy(
+            (cnt != 0).astype(np.int32)).to(dev))
+        k1 = minplus.minplus_walls(ft, ss, se, 36.0, True, True)
+        k2 = argmin.minplus_argmin(ft, 36.0, ct, True)
+        sent = torch.iinfo(k2[1].dtype).min
+        k3 = grad.minplus_grad(gt, offsets=k2[1], off_sent=sent)
+        fb = torch.where(ft <= 0, 0.0, 5e4)
+        d, argj = soft._minplus_hard_binary_with_arg(fb, 36.0)
+        ob = soft._binary_offsets(fb, argj,
+                                  d <= argmin.walls_from_counts(ct, 36.0))
+        k4 = grad.binary_grad_scan(gt, ob, off_sent=torch.iinfo(ob.dtype).min)
+        st = torch.from_numpy(fs[:-1]).to(dev) * 36.0
+        k5 = softmin.softmin(st, 36.0, 0.3)
+        k6 = softmin.softmin_grad(st, k5, gt[:st.shape[0]].contiguous(),
+                                  36.0, 0.3)
+        return [t.cpu() for t in (k1, *k2, k3, k4, k5, *k6)]
+
+    torch.cuda.set_device(first)
+    ref = run(first)
+    for stream in (None, torch.cuda.Stream(last)):
+        with torch.cuda.stream(stream) if stream else contextlib.nullcontext():
+            torch.cuda.set_device(first)  # a stream's context makes its card current
+            got = run(last)
+        assert torch.cuda.current_device() == first.index
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if i < 3:
+                assert torch.equal(a, b), i
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    lab = rng.integers(0, 4, size=(40, 33, 37)).astype(np.uint32)
+    want = api.edtsq(lab, (6.0, 6.0, 30.0), True, device=first)
+    assert np.array_equal(api.edtsq(lab, (6.0, 6.0, 30.0), True, device=last),
+                          want)
+    monkeypatch.setenv("EDT_TPU_SHARD_MIN_VOXELS", "1")
+    counters.reset()
+    assert np.array_equal(api.edtsq(lab, (6.0, 6.0, 30.0), True), want)
+    assert counters.sharded_dispatches == 1

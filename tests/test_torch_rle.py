@@ -6,6 +6,11 @@ into edt_tpu_torch/_build/) and the NumPy path, which the tests select by
 reporting the kit unavailable. Inputs are made from a seed with numpy.
 """
 
+import subprocess
+import sys
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -137,6 +142,27 @@ def test_backend_and_native_build():
     assert path.parent == build.BUILD_DIR and path.exists()
     assert path.name.startswith("rle-") and build.build() == path
     assert rle_native.available() and rle.backend() == "native"
+
+
+def test_native_build_force(tmp_path, monkeypatch):
+    """build() reuses the hashed target; build(force=True) and ``python -m
+    edt_tpu_torch.native.build --force`` compile it again all the same,
+    as the JAX package's ``build(force=True)`` and ``--force`` do."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    path = build.build()
+    ino = path.stat().st_ino
+    assert path.parent == tmp_path
+    assert build.build() == path and path.stat().st_ino == ino
+    assert build.build(force=True) == path and path.stat().st_ino != ino
+    monkeypatch.undo()
+    t0 = time.time_ns()
+    out = subprocess.run(
+        [sys.executable, "-m", "edt_tpu_torch.native.build", "--force"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    built = Path(out.stdout.strip())
+    assert built == build.target() and built.stat().st_mtime_ns >= t0
 
 
 def test_extract_label_and_each_device_match_jax():
