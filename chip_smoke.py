@@ -2390,6 +2390,7 @@ def phase_export(exact, dev):
 LONG_N = (58049, 65536)  # K1, K2, K3, K5: one past their ceiling, and 2^16
 LONG_N6 = (29025, 40000)  # K6: one past its ceiling, and the soft volume's
 LONG_ROWS = 8
+LONG_MANY = 256  # the rows of LONG_VOLUME's and LONG_SOFT[0]'s long passes
 LONG_VOLUME = (16, 16, 65536)  # multilabel_edtsq, bench flags
 LONG_SOFT = ((16, 16, 40000), (4, 4, 65536))  # soft_edtsq at t = SOFT_T
 LONG_VG = ((2, 8, 32768), (32768, 8, 2))  # doubled axis 65536
@@ -2398,20 +2399,42 @@ REP = "edt_tpu/ops/pallas_kernels.py:"
 
 
 def long_launches():
-    """Launches in the long-row modes: K1, K2, K3, K5, K6."""
+    """Launches in the long-row modes: K1, K2, K5 (their second
+    instantiations), K3 and K6 (their row-split kernels, each followed by
+    one launch of the one-warp kernel: ``one_warp``)."""
     from edt_tpu_torch.ops import argmin, grad, minplus, softmin
 
     return {"K1": minplus.long_launches, "K2": argmin.long_launches,
-            "K3": grad.minplus_grad_long_launches,
-            "K5": softmin.long_launches, "K6": softmin.grad_long_launches}
+            "K3": grad.minplus_grad_split_launches,
+            "K5": softmin.long_launches, "K6": softmin.grad_split_launches}
 
 
 def zero_long_launches():
     from edt_tpu_torch.ops import argmin, grad, minplus, softmin
 
     minplus.long_launches = argmin.long_launches = 0
-    grad.minplus_grad_long_launches = 0
-    softmin.long_launches = softmin.grad_long_launches = 0
+    grad.minplus_grad_split_launches = grad.minplus_grad_long_launches = 0
+    softmin.long_launches = 0
+    softmin.grad_split_launches = softmin.grad_long_launches = 0
+
+
+def one_warp(k):
+    """K3's or K6's last long-row call: (one-warp launches since the
+    counts were zeroed, rows of that call the one-warp mode took, its
+    rows). The rest took the row-split mode."""
+    from edt_tpu_torch.ops import grad, softmin
+
+    mod, launches = ((grad, grad.minplus_grad_long_launches) if k == "K3"
+                     else (softmin, softmin.grad_long_launches))
+    marks = mod.last_one_warp_rows
+    return launches, int(marks.sum()), marks.numel()
+
+
+def mode_shares(k):
+    """The share of the last long-row call's rows each mode took."""
+    _, marked, rows = one_warp(k)
+    return (f"{k} rows: row-split {rows - marked} of {rows}, one-warp "
+            f"{marked}")
 
 
 def long_label_rows(rng, rows, n, run=32):
@@ -2449,6 +2472,189 @@ def soft_needed(f, w2, t, d=None):
             needed += int(((d[r0:r1, i0:i1, None] - cost) >= -cut).sum())
         del cost
     return needed
+
+
+# csrc/grad.cu kSplitTile: sources a tile of K3's row-split mode, at most
+# (the kernel halves it on few rows, which changes no value)
+K3_TILE = 1024
+K6_TILE = K6_HALO = 256  # csrc/softmin.cu kTile6, kHalo6
+
+
+def k3_targets(offsets, off_sent):
+    """K3's targets i + o of int16/int32 link offsets, -1 where a source is
+    inert (``off_sent``) or its link leaves the row."""
+    n = offsets.shape[-1]
+    o = offsets.to(torch.int64)
+    t = torch.arange(n, device=offsets.device) + o
+    return torch.where((o != off_sent) & (t >= 0) & (t < n), t, -1)
+
+
+def _k3_split_row(g, t, tile):
+    """One row of ``k3_split``; None where a tile finds a descent."""
+    n = t.shape[0]
+    df = np.zeros(n, np.float32)
+    live_at = np.nonzero(t >= 0)[0]
+    for a in range(0, n, tile):
+        b = min(n, a + tile)
+        live = live_at[(live_at >= a) & (live_at < b)]
+        if not live.size:
+            continue
+        before = live_at[live_at < a]  # the run open before the tile
+        tc, sc, own = (int(t[before[-1]]) if before.size else -1), None, False
+        for i in live:
+            if t[i] < tc:
+                return None
+            if t[i] == tc:
+                sc = np.float32(sc + g[i]) if own else sc
+                continue
+            if own:
+                df[tc] = sc
+            tc, sc, own = int(t[i]), np.float32(np.float32(0) + g[i]), True
+        if not own:
+            continue
+        for i in live_at[live_at >= b]:  # the owned run, on past the tile
+            if t[i] != tc:
+                if t[i] < tc:
+                    return None
+                break
+            sc = np.float32(sc + g[i])
+        df[tc] = sc
+    return df
+
+
+def k3_split(g, targets, tile=K3_TILE):
+    """K3's row-split mode emulated on the host: (df, marks). Each tile of
+    ``tile`` sources sums the runs of equal targets whose first live
+    source it holds, in ascending i onto 0.0 in f32, reading on past its
+    end for the last one, and skips the run open before it (the target of
+    the nearest live source before it); a descent, from that source to the
+    first live one after the tile's own last run, marks the row, which
+    then takes the one-warp mode: every target's sources summed onto 0.0
+    in ascending i. ``targets``: ``k3_targets``."""
+    gn = g.detach().cpu().numpy()
+    tn = targets.cpu().numpy()
+    R, n = tn.shape
+    df = np.zeros((R, n), np.float32)
+    marks = np.zeros(R, np.int32)
+    for r in range(R):
+        row = _k3_split_row(gn[r], tn[r], tile)
+        if row is None:
+            marks[r] = 1
+            row = np.zeros(n, np.float32)
+            for i in np.nonzero(tn[r] >= 0)[0]:
+                row[tn[r, i]] = np.float32(row[tn[r, i]] + gn[r, i])
+        df[r] = row
+    return torch.from_numpy(df), torch.from_numpy(marks)
+
+
+def k3_split_rows(rng, n, tile=K3_TILE):
+    """(g, int32 offsets, off_sent, marks K3's row-split mode must give) of
+    eight rows that stress it at tiles of ``tile`` sources: (0) runs of
+    0.7 tile crossing tile ends; (1) one target for the whole row, a run
+    longer than a tile; (2) runs of 1 to 8 with inert sources around every
+    tile end and links that leave the row at both ends; (3) ascending but
+    one descent just past a tile end; (4) random targets; (5) every source
+    inert; (6) one live source, mid-row; (7) a run that starts a tile
+    before a stretch of two inert tiles and goes on after it. Cotangents
+    of magnitudes 1e-4 to 1e4, so a sum in another order shows."""
+    i = np.arange(n)
+    run = max(1, int(0.7 * tile))
+    t = np.empty((8, n), np.int64)
+    live = np.ones((8, n), bool)
+    t[0] = np.minimum(n - 1, (i // run) * run + run // 2)
+    t[1] = n // 2
+    t[2] = np.minimum(n - 1, np.cumsum(rng.integers(0, 8, n) == 0))
+    live[2] = (rng.random(n) < 0.8) & (np.abs((i + 4) % tile - 4) > 3)
+    t[2, :5] = -3  # links leave the row
+    t[2, -5:] = n + 2
+    t[3] = np.minimum(n - 1, i // 3)
+    t[3, tile + 2] = max(0, t[3, tile + 2] - 50)
+    t[4] = rng.integers(0, n, n)
+    live[5] = False
+    t[6] = n // 3
+    live[6] = i == n // 2
+    t[7] = np.minimum(n - 1, i // 2 + 1)
+    live[7] &= (i < tile + tile // 2) | (i >= 3 * tile + tile // 2)
+    t[7, tile: 4 * tile] = t[7, tile]
+    off_sent = np.iinfo(np.int32).min
+    o = np.where(live, t - i, off_sent).astype(np.int32)
+    g = (rng.uniform(-1, 1, (8, n))
+         * 10.0 ** rng.uniform(-4, 4, (8, n))).astype(np.float32)
+    marks = np.array([0, 0, 0, 1, 1, 0, 0, 0], np.int32)
+    return g, o, off_sent, marks
+
+
+def k6_split(f, d, g, w2, t, tile=K6_TILE, halo=K6_HALO):
+    """K6's row-split mode emulated with torch on the host: (df, e, marks).
+    Each tile of ``tile`` targets takes the row's min f, bounds its windows
+    by its largest gap d_i + 30 t - min f (reach = floor(sqrt(gap / w2)) +
+    2, staged halo hw = min(reach, ``halo``)), sums Z_i and e_i over the
+    pairs inside each window's cut (f32 tests as the kernel rounds them,
+    exact exps), and scatters (g_i / Z_i) p_ij onto its span; a pair past
+    hw marks the row, which takes the plain version (the one-warp mode's
+    values). The tile keeps its own targets' df and a halo on each side as
+    wide as its farthest pair; each tile then adds the right halo of the
+    tile before it and the left halo of the tile after it, as far as they
+    reach."""
+    from edt_tpu_torch.ops import core, softmin
+
+    f, d, g = (x.detach().cpu() for x in (f, d, g))
+    R, n = f.shape
+    w2, t = core.f32(w2), core.f32(t)
+    cut = torch.tensor(30.0 * t, dtype=torch.float32)
+    scale = torch.tensor(1.4426950408889634 / t, dtype=torch.float32)
+    w2t = torch.tensor(w2, dtype=torch.float32)
+    df = torch.zeros(R, n)
+    e = torch.zeros(R, n)
+    marks = torch.zeros(R, dtype=torch.int32)
+    j = torch.arange(n)
+    tiles = -(-n // tile)
+    for r in range(R):
+        minf = f[r].min()
+        own, left, right, width = [], [], [], []
+        for a in range(0, n, tile):
+            b = min(n, a + tile)
+            i = torch.arange(a, b)
+            gap = (d[r, a:b] + cut) - minf
+            ratio = float(torch.nan_to_num(gap, nan=-1.0).max() / w2t)
+            reach = (0 if not ratio >= 0 else n if ratio >= float(n) * n
+                     else int(ratio ** 0.5) + 2)
+            hw = min(reach, halo)
+            k = (i[:, None] - j[None, :]).abs()
+            q = w2t * (k * k).to(torch.float32)
+            x = d[r, a:b, None] - (f[r][None, :] + q)
+            pair = (q <= gap[:, None]) & (x >= -cut)
+            p = torch.where(pair, torch.exp2(x * scale).double(), 0.0)
+            kin = torch.where(pair, k, -1).amax(dim=1)
+            if int(kin.max()) > hw:
+                marks[r] = 1
+                break
+            z = p.sum(dim=1)
+            gz = torch.where(z > 0, g[r, a:b].double() / z, 0.0)
+            e[r, a:b] = torch.where(z > 0, (p * (k * k)).sum(dim=1) / z,
+                                    0.0).float()
+            part = (gz[:, None] * p).sum(dim=0).float()
+            h = max(0, int(kin.max()))
+            own.append(part[a:b])
+            left.append(part[max(0, a - h):a])
+            right.append(part[b:b + h])
+            width.append(h)
+        if marks[r]:
+            df[r], e[r] = (v[0] for v in softmin.softmin_grad_plain(
+                f[r:r + 1], d[r:r + 1], g[r:r + 1], w2, t))
+            continue
+        for s in range(tiles):
+            a, b = s * tile, min(n, s * tile + tile)
+            row = own[s].clone()
+            if s > 0:
+                hl = min(width[s - 1], b - a)
+                row[:hl] += right[s - 1][:hl]
+            if s + 1 < tiles:
+                hr = min(width[s + 1], b - a)
+                if hr:
+                    row[b - a - hr:] += left[s + 1][-hr:]
+            df[r, a:b] = row
+    return df, e, marks
 
 
 def long_kernel_cases(exact, close3, close5, close6, dev):
@@ -2500,7 +2706,9 @@ def long_kernel_cases(exact, close3, close5, close6, dev):
                 print(f"{name} n={n} {(R, n)}: shared-memory mode {short_ms:.3f} "
                       f"ms ({short_ms / vox * 1e6:.3f} ns a voxel), long-row "
                       f"mode {long_ms:.3f} ms ({long_ms / vox * 1e6:.3f} ns a "
-                      "voxel)")
+                      "voxel)" + (f"; {mode_shares('K3')}" if name == "K3"
+                                  else ""))
+            check_k3_split_rows(exact, n, dev)
             continue
         rd, ro = argmin.minplus_argmin_plain(ft, w2, cnt, True)
         exact.check(f"K2 long rows n={n} d", d2, rd)
@@ -2508,6 +2716,7 @@ def long_kernel_cases(exact, close3, close5, close6, dev):
         del rd, ro
         close3.check(f"K3 long rows n={n}", k3(True),
                      grad.minplus_grad_plain(g, offsets=o2, off_sent=sent))
+        print(f"K3 long rows {(R, n)}: {mode_shares('K3')}")
         check_k5(close5, f"long rows n={n}", fs, w2, t,
                  softmin.softmin_plain(fs, w2, t))
         if n != LONG_N[-1]:
@@ -2535,43 +2744,196 @@ def long_kernel_cases(exact, close3, close5, close6, dev):
                 ("K5", k5, lambda: softmin.softmin_plain(fs, w2, t),
                  bound_exp_ms(8 * vox, 6 * needed5, needed5, exps_per_s)[:2],
                  None)):
-            ms, _ = cuda_ms(lambda: fn(True), reps=5)
+            ms, all_ms = cuda_ms(lambda: fn(True), reps=5)
             pms, _ = cuda_ms(plain, reps=1, warmup=0)
             lms = cuda_ms(lib, reps=5)[0] if lib else None
             rows[name] = (ms, pms, bnd[0], bnd[1], lib and lms)
             print(f"{name} long rows {(R, n)}: {ms:.3f} ms ({ms / vox * 1e6:.3f} "
-                  f"ns a voxel), plain {pms:.1f} ms, bound {bnd[0]:.4f} ms "
-                  f"({bnd[1]})" + (f", library scatter_add_ {lms:.3f} ms"
-                                   if lib else ""))
+                  f"ns a voxel; runs {[round(x, 4) for x in all_ms]}), plain "
+                  f"{pms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+                  + (f", library scatter_add_ {lms:.3f} ms" if lib else ""))
         del walls, links, gm
-    # K6: forced at its ceiling, then past it
-    for n in (softmin.GRAD_MAX_AXIS,) + LONG_N6:
+        rows["K3"] = k3_many_rows(close3, n, rng, dev)
+    # K6: forced at its ceiling, then past it, on LONG_ROWS rows and (the
+    # long cell's rows) LONG_MANY
+    for n, R in ((softmin.GRAD_MAX_AXIS, LONG_ROWS),
+                 *((n, LONG_ROWS) for n in LONG_N6), (LONG_N6[-1], LONG_MANY)):
         fs = torch.from_numpy(long_soft_rows(rng, R, n)).to(dev)
         d = softmin.softmin(fs, w2, t)
         g = torch.from_numpy(rng.uniform(-1, 1, (R, n)).astype(np.float32)).to(dev)
         k6 = lambda lr: softmin.softmin_grad(fs, d, g, w2, t, _long_rows=lr)  # noqa: E731
         vox = R * n
         if n == softmin.GRAD_MAX_AXIS:
-            for a, b in zip(k6(True), k6(False)):
-                exact.check(f"K6 n={n} long mode vs shared memory", a, b)
+            # the row-split mode sums df tile by tile, then the halos: within
+            # tolerance of the shared-memory mode, no longer bit-equal; e's
+            # sums are that mode's
+            (a, ea), (b, eb) = k6(True), k6(False)
+            close6.check(f"K6 df n={n} long mode vs shared memory", a, b)
+            exact.check(f"K6 e n={n} long mode vs shared memory", ea, eb)
             short_ms, _ = cuda_ms(lambda: k6(False), reps=5)
             long_ms, _ = cuda_ms(lambda: k6(True), reps=5)
             print(f"K6 n={n} {(R, n)}: shared-memory mode {short_ms:.3f} ms "
                   f"({short_ms / vox * 1e6:.3f} ns a voxel), long-row mode "
-                  f"{long_ms:.3f} ms ({long_ms / vox * 1e6:.3f} ns a voxel)")
+                  f"{long_ms:.3f} ms ({long_ms / vox * 1e6:.3f} ns a voxel); "
+                  f"{mode_shares('K6')}")
             continue
-        check_k6(close6, f"long rows n={n}", fs, d, g, w2, t)
+        check_k6(close6, f"long rows {(R, n)}", fs, d, g, w2, t)
+        print(f"K6 long rows {(R, n)}: {mode_shares('K6')}")
         if n != LONG_N6[-1]:
             continue
         needed6 = soft_needed(fs, w2, t, d)
         bms, by, _ = bound_exp_ms(20 * vox, 7 * needed6, needed6, exps_per_s)
-        ms, _ = cuda_ms(lambda: k6(True), reps=5)
+        ms, all_ms = cuda_ms(lambda: k6(True), reps=5)
         pms, _ = cuda_ms(lambda: softmin.softmin_grad_plain(fs, d, g, w2, t),
                          reps=1, warmup=0)
         rows["K6"] = (ms, pms, bms, by, None)
         print(f"K6 long rows {(R, n)}: {ms:.3f} ms ({ms / vox * 1e6:.3f} ns a "
-              f"voxel), plain {pms:.1f} ms, bound {bms:.4f} ms ({by})")
+              f"voxel; runs {[round(x, 4) for x in all_ms]}), plain {pms:.1f} "
+              f"ms, bound {bms:.4f} ms ({by}), {needed6 / vox:.2f} pairs a "
+              "voxel inside the cut")
     return rows
+
+
+# (rows, n): few rows of each length, then rows of 2048 to 32768 that fill
+# a 512^3-sized volume (134M voxels) and some between
+K3_MODE_SHAPES = tuple((r, n) for r in (8, 64, 256, 1024)
+                       for n in (2048, 8192, 32768)) + (
+    (4096, 2048), (16384, 2048), (65536, 2048), (8192, 4096),
+    (32768, 4096), (4096, 8192), (16384, 8192), (4096, 32768))
+
+
+def k3_modes(dev):
+    """K3's two modes forced on K2's links of label rows at shapes below
+    its ceiling (K3_MODE_SHAPES): ms of each, bit-equal, and the mode the
+    wrapper takes by itself."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import argmin, grad
+
+    rng = np.random.default_rng(53)
+    bad = []
+    for R, n in K3_MODE_SHAPES:
+        f, lab = long_label_rows(rng, R, n)
+        cnt = soft._wall_counts(torch.from_numpy(lab).to(dev), 1,
+                                True).contiguous()
+        _, o = argmin.minplus_argmin(torch.from_numpy(f).to(dev), 36.0,
+                                     cnt, True)
+        del f, lab, cnt
+        sent = torch.iinfo(o.dtype).min
+        g = torch.from_numpy(rng.uniform(-1, 1, (R, n)).astype(
+            np.float32)).to(dev)
+        k3 = lambda lr: grad.minplus_grad(  # noqa: E731
+            g, offsets=o, off_sent=sent, _long_rows=lr)
+        if not bit_equal(k3(True), k3(False)):
+            bad.append((R, n))
+        shared, _ = cuda_ms(lambda: k3(False), reps=5)
+        split, _ = cuda_ms(lambda: k3(True), reps=5)
+        before = grad.minplus_grad_split_launches
+        k3(None)
+        auto = ("row-split" if grad.minplus_grad_split_launches > before
+                else "shared-memory")
+        print(f"K3 {(R, n)}: shared-memory mode {shared:.4f} ms, "
+              f"row-split mode {split:.4f} ms ({shared / split:.2f}x); "
+              f"the wrapper takes the {auto} mode")
+        del o, g
+    if bad:
+        raise AssertionError(f"K3 modes differ at {bad}")
+
+
+def split_profiles(dev):
+    """Device ms by kernel of one call of K3's and K6's long-row modes and
+    of ``scatter_add_`` on K3's inputs, at (LONG_ROWS, n) and (LONG_MANY,
+    n), n = 65536 (K6: 40000). Run only when named, alone in its process:
+    in a whole run, or after a long unprofiled stretch that follows a
+    profile, the profiler keeps none or only the last of the few device
+    events of such a call."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import argmin, grad, softmin
+
+    rng = np.random.default_rng(59)
+    n, n6, w2 = LONG_N[-1], LONG_N6[-1], 36.0
+    for R in (LONG_ROWS, LONG_MANY):
+        f, lab = long_label_rows(rng, R, n)
+        cnt = soft._wall_counts(torch.from_numpy(lab).to(dev), 1,
+                                True).contiguous()
+        _, o = argmin.minplus_argmin(torch.from_numpy(f).to(dev), w2, cnt, True)
+        sent = torch.iinfo(o.dtype).min
+        g = torch.from_numpy(rng.uniform(-1, 1, (R, n)).astype(np.float32)).to(dev)
+        live = o != sent
+        idx = torch.arange(n, device=dev)
+        links = torch.where(live, idx + o.to(torch.int64), idx)
+        gm = torch.where(live, g, 0.0)
+        for label, fn in (
+                ("K3", lambda: grad.minplus_grad(g, offsets=o, off_sent=sent)),
+                ("scatter_add_",
+                 lambda: torch.zeros_like(g).scatter_add_(1, links, gm))):
+            fn()
+            profile(fn, f"{label} long rows {(R, n)}")
+        fs = torch.from_numpy(long_soft_rows(rng, R, n6)).to(dev)
+        d = softmin.softmin(fs, w2, SOFT_T)
+        g6 = torch.from_numpy(rng.uniform(-1, 1, (R, n6)).astype(np.float32)).to(dev)
+        k6 = lambda: softmin.softmin_grad(fs, d, g6, w2, SOFT_T)  # noqa: E731
+        k6()
+        profile(k6, f"K6 long rows {(R, n6)}")
+
+
+def check_k3_split_rows(exact, n, dev):
+    """K3's long-row mode on ``k3_split_rows`` at n (runs across tile ends,
+    a run longer than a tile, inert sources at tile ends, links that leave
+    the row, two rows whose links descend): bit-equal to the shared-memory
+    mode and to the host twin ``k3_split``, the marks the twin's."""
+    from edt_tpu_torch.ops import grad
+
+    g, o, sent, marks = k3_split_rows(np.random.default_rng(47), n, K3_TILE)
+    g, o = torch.from_numpy(g).to(dev), torch.from_numpy(o).to(dev)
+    df = grad.minplus_grad(g, offsets=o, off_sent=sent, _long_rows=True)
+    got = grad.last_one_warp_rows.cpu()
+    exact.check(f"K3 n={n} stress rows, long mode vs shared memory", df,
+                grad.minplus_grad(g, offsets=o, off_sent=sent,
+                                  _long_rows=False))
+    twin, twin_marks = k3_split(g, k3_targets(o, sent), K3_TILE)
+    exact.check(f"K3 n={n} stress rows vs the host twin", df.cpu(), twin)
+    if not (torch.equal(got, twin_marks)
+            and torch.equal(got, torch.from_numpy(marks))):
+        exact.failures.append(f"K3 n={n} stress rows: marks {got.tolist()}")
+    print(f"K3 n={n} stress rows {tuple(g.shape)}: bit-equal to the "
+          f"shared-memory mode and the host twin; {mode_shares('K3')}")
+
+
+def k3_many_rows(close3, n, rng, dev):
+    """K3's long-row mode at (LONG_MANY, n), the long fwd+bwd's rows, on
+    K2's links of label rows: against its plain version, its time beside
+    its bound and ``scatter_add_``'s. Returns the JSON row's numbers."""
+    from edt_tpu_torch.models import soft
+    from edt_tpu_torch.ops import argmin, grad
+
+    R = LONG_MANY
+    f, lab = long_label_rows(rng, R, n)
+    cnt = soft._wall_counts(torch.from_numpy(lab).to(dev), 1, True).contiguous()
+    _, o = argmin.minplus_argmin(torch.from_numpy(f).to(dev), 36.0, cnt, True)
+    del cnt
+    sent = torch.iinfo(o.dtype).min
+    g = torch.from_numpy(rng.uniform(-1, 1, (R, n)).astype(np.float32)).to(dev)
+    k3 = lambda: grad.minplus_grad(g, offsets=o, off_sent=sent)  # noqa: E731
+    close3.check(f"K3 long rows {(R, n)}", k3(),
+                 grad.minplus_grad_plain(g, offsets=o, off_sent=sent))
+    shares = mode_shares("K3")
+    live = o != sent
+    idx = torch.arange(n, device=dev)
+    links = torch.where(live, idx + o.to(torch.int64), idx)
+    gm = torch.where(live, g, 0.0)
+    vox = R * n
+    bms, by = bound_ms(12 * vox, int(live.sum()))
+    ms, all_ms = cuda_ms(k3, reps=5)
+    pms, _ = cuda_ms(lambda: grad.minplus_grad_plain(g, offsets=o,
+                                                     off_sent=sent),
+                     reps=1, warmup=0)
+    lms, _ = cuda_ms(lambda: torch.zeros_like(g).scatter_add_(1, links, gm),
+                     reps=5)
+    print(f"K3 long rows {(R, n)}: {ms:.3f} ms ({ms / vox * 1e6:.4f} ns a "
+          f"voxel; runs {[round(x, 4) for x in all_ms]}), plain {pms:.1f} ms, "
+          f"bound {bms:.4f} ms ({by}), library scatter_add_ {lms:.3f} ms; "
+          f"{shares}")
+    return ms, pms, bms, by, lms
 
 
 def long_multilabel(exact, close, dev):
@@ -2592,9 +2954,12 @@ def long_multilabel(exact, close, dev):
     zero_long_launches()
     out, g = fwd_bwd(lt, occ, True, barrier)
     counts, longs = grad_launches(), long_launches()
-    if counts != (2, 2, 1) or (longs["K2"], longs["K3"]) != (1, 1):
+    if (counts != (2, 2, 1) or (longs["K2"], longs["K3"]) != (1, 1)
+            or one_warp("K3")[0] != 1):
         raise AssertionError(f"{LONG_VOLUME} fwd+bwd: launches (K2, K3, K4) "
-                             f"{counts}, long rows {longs}")
+                             f"{counts}, long rows {longs}, K3 one-warp "
+                             f"{one_warp('K3')}")
+    shares = mode_shares("K3")
     rout, rg = fwd_bwd(lt, occ, True, barrier, kernels=soft.PLAIN)
     exact.check(f"{LONG_VOLUME} multilabel_edtsq forward vs PLAIN", out, rout)
     close.check(f"{LONG_VOLUME} multilabel_edtsq gradient vs PLAIN", g, rg)
@@ -2606,7 +2971,8 @@ def long_multilabel(exact, close, dev):
     print(f"{LONG_VOLUME} multilabel_edtsq fwd+bwd (bench flags): {ms:.2f} ms "
           f"median of {[round(x, 2) for x in all_ms]} ({ms / vox * 1e6:.3f} ns "
           f"a voxel), kernels=PLAIN {pms:.1f} ms; launches (K2, K3, K4) "
-          f"{counts}, long rows K2 {longs['K2']}, K3 {longs['K3']}")
+          f"{counts}, long rows K2 {longs['K2']}, K3 {longs['K3']}; "
+          f"{shares}")
     profile(lambda: fwd_bwd(lt, occ, True, barrier),
             f"{LONG_VOLUME} multilabel_edtsq fwd+bwd (bench flags)", top=10,
             by_op=True)
@@ -2635,9 +3001,12 @@ def long_soft(close_f, close_g, dev):
         counts, longs = soft_launches(), long_launches()
         want = (int(shape[2] > softmin.MAX_AXIS),
                 int(shape[2] > softmin.GRAD_MAX_AXIS))
-        if counts != (3, 3) or (longs["K5"], longs["K6"]) != want:
+        if (counts != (3, 3) or (longs["K5"], longs["K6"]) != want
+                or one_warp("K6")[0] != want[1]):
             raise AssertionError(f"{shape} soft_edtsq: launches (K5, K6) "
-                                 f"{counts}, long rows {longs}")
+                                 f"{counts}, long rows {longs}, K6 one-warp "
+                                 f"{one_warp('K6')}")
+        shares = mode_shares("K6")
         total["K5"] += longs["K5"]
         total["K6"] += longs["K6"]
         rout, rg = value_and_grad(fn, occ, soft.PLAIN)
@@ -2652,7 +3021,7 @@ def long_soft(close_f, close_g, dev):
         print(f"{shape} soft_edtsq t={SOFT_T} fwd+bwd: {ms:.2f} ms median of "
               f"{[round(x, 2) for x in all_ms]} ({ms / vox * 1e6:.3f} ns a "
               f"voxel); launches (K5, K6) {counts}, long rows K5 "
-              f"{longs['K5']}, K6 {longs['K6']}")
+              f"{longs['K5']}, K6 {longs['K6']}; {shares}")
         profile(lambda: value_and_grad(fn, occ, soft.KERNELS),
                 f"{shape} soft_edtsq t={SOFT_T} fwd+bwd", by_op=True)
     return total
@@ -4006,9 +4375,15 @@ def main(only=()) -> int:
                lambda: phase_train_sharded(kernels, dev)),
               ("api_shard: the NumPy API over every card",
                lambda: phase_api_shard(kernels, dev))]
-    if only:
-        phases = [(name, fn) for name, fn in phases if name == "build"
-                  or any(w.lower() in name.lower() for w in only)]
+    # tuning sweeps, run only when named
+    phases += [("k3_modes: K3's two modes below its ceiling",
+                lambda: k3_modes(dev)),
+               ("split_profiles: K3's and K6's row-split calls by kernel",
+                lambda: split_profiles(dev))]
+    on_request = {name for name, _ in phases[-2:]}
+    phases = [(name, fn) for name, fn in phases if name == "build"
+              or (not only and name not in on_request)
+              or any(w.lower() in name.lower() for w in only)]
     for name, fn in phases:
         t = time.perf_counter()
         try:

@@ -37,11 +37,32 @@
 // shuffle steps in one lane, still O(1) a voxel.
 //
 // Long rows (past the shared-memory ceiling, any n; the wrapper may also
-// ask for this mode on a shorter row) take the same kernel's second
-// instantiation: the accumulator is the output row in device memory,
-// zeroed by the warp first and touched by no other warp; __syncwarp orders
-// each chunk's writes before the next chunk's reads. Every target sums its
-// sources in the same order as in shared memory: the same bits.
+// ask for this mode on a shorter row) take the row-split mode, which
+// spreads one row over many warps. The row is cut into tiles of
+// kSplitTile sources (halved, down to 256, while the rows give fewer than
+// 32 warps an SM), one warp a tile, kSplitWarps tiles a block, so
+// (8, 65536) has 2048 warps in flight. A warp folds four 32-source chunks
+// while the next four load. Where the live targets of a row
+// ascend, as K2's do, a target's sources form one run of consecutive live
+// sources, and the warp sums each run in registers, in ascending i onto
+// 0.0 (its leader lane takes the run's cotangents one shuffle a step), and
+// writes it once. A run that crosses a tile's end is summed whole by the
+// tile that holds its first live source, reading on past its end; the
+// tiles it reaches skip it (each tile learns the target of the nearest
+// live source before it by reading back). The targets no source reaches
+// are zeroed by the run after them (the last run of a row zeroes those
+// after it; a row with no live source, its last tile). Every target is
+// thus written once, by one warp, with the shared-memory mode's sum in its
+// order: the same bits, no atomics. Each tile checks that its live targets ascend, from the
+// nearest live source before it to the first live one after the run it
+// owns, which covers every pair of neighbouring live sources of the row; a
+// tile that finds a descent marks its row and stops. A second launch runs
+// the marked rows alone in the one-warp mode: the kernel's second
+// instantiation, whose accumulator is the output row in device memory,
+// zeroed by the warp first and touched by no other warp, __syncwarp
+// ordering each chunk's writes before the next chunk's reads, the
+// shared-memory mode's order again. Its other warps read their row's mark
+// and return. Bound: 12 B a voxel (g, int32 links, df).
 //
 // K4, the binary-pass scan. Replaces edt_tpu/ops/pallas_kernels.py:
 // _binary_grad_scan_kernel. Offsets o mark zero sites with the dtype max and
@@ -88,6 +109,10 @@ namespace {
 
 constexpr int kGradWarps = 8;  // rows a block, at most
 constexpr int kGradUnroll = 4;  // chunks in flight
+constexpr int kSplitWarps = 8;  // row-split mode: tiles a block, a warp each
+constexpr int kSplitTile = 1024;  // row-split mode: sources a tile, at most
+constexpr int kSplitTileMin = 256;  // and at least
+constexpr long long kSplitFill = 32 * 132;  // warps: 32 on each of 132 SMs
 constexpr int kMaxSmem = 232448;  // an H100 block's opt-in shared memory
 constexpr int kScanWarps = 8;
 constexpr int kScanRegMax = 32;  // K4: voxels a lane holds in registers
@@ -143,16 +168,19 @@ __device__ __forceinline__ void scatter_chunk(float* acc, int t, float gi,
   __syncwarp();
 }
 
+// only: on long rows, the row-split mode's marks; rows it did not mark are
+// done and left alone.
 template <int kLink, bool kLong>
 __global__ void __launch_bounds__(kGradWarps * 32)
 minplus_grad_kernel(const float* __restrict__ g, const void* __restrict__ links,
                     float* __restrict__ out, long long rows, int n,
-                    int off_sent, int has_sent) {
+                    int off_sent, int has_sent, const int* __restrict__ only) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= rows) return;  // whole warps only: the shuffles stay full
+  if (kLong && !only[row]) return;
   const size_t base = (size_t)row * (size_t)n;
   // the accumulator: in shared memory, or on long rows the output row
   // itself, which only this warp touches
@@ -184,6 +212,186 @@ minplus_grad_kernel(const float* __restrict__ g, const void* __restrict__ links,
   // --- write the row out, coalesced ---
   if constexpr (!kLong)
     for (int j = lane; j < n; j += 32) out[base + j] = acc[j];
+}
+
+// Zeroes df[z0, z1), the whole warp.
+__device__ __forceinline__ void zero_range(float* df, int z0, int z1, int lane) {
+  for (int j = z0 + lane; j < z1; j += 32) df[j] = 0.0f;
+}
+
+// The row-split mode's fold of one chunk whose live lanes lm are not none,
+// into the warp's open run: its target tc (-1: none), its sum sc so far and
+// whether this tile owns it. Checks that the live targets ascend from tc;
+// sums each run of equal targets in ascending lane order, the first onto
+// sc where it continues the open run, any other onto 0.0 (the
+// shared-memory mode's acc[t] + g, acc[t] = 0.0); writes each run that
+// ends in or before the chunk, where this tile owns it; and leaves the
+// chunk's last run open. A run's lanes are the live lanes from its leader
+// up to the next leader: the leader takes their cotangents one shuffle a
+// step, as many steps as the chunk's longest run. The targets from the one
+// before the chunk's first new run up to its last run's hold no other
+// warp's sums: the warp zeroes them all, then writes the runs it closes
+// over them, so each target no source reaches is zeroed by the run after
+// it. Returns false where the targets descend.
+__device__ __forceinline__ bool fold_chunk(float* df, int t, float gi, int lane,
+                                           unsigned lm, int& tc, float& sc,
+                                           bool& own) {
+  const bool live = t >= 0;
+  const unsigned below = lm & ((1u << lane) - 1u);
+  const int tp = __shfl_sync(kFull, t, below ? 31 - __clz(below) : lane);
+  const int prev = below ? tp : tc;  // the target of the live source before
+  if (__any_sync(kFull, live && t < prev)) return false;
+  const bool leader = live && (below == 0u || tp != t);
+  const bool cont = leader && below == 0u && t == tc;  // continues the open run
+  // the run's other lanes: live, after the leader, before the next leader
+  const unsigned lead = __ballot_sync(kFull, leader);
+  const unsigned later = ~((2u << lane) - 1u);  // lanes above this one
+  const unsigned next = lead & later;
+  unsigned mine = leader ? lm & later & (next ? (next & -next) - 1u : kFull) : 0u;
+  const int steps = __reduce_max_sync(kFull, __popc(mine));
+  float s = 0.0f;
+  if (leader) s = (cont ? sc : 0.0f) + gi;
+  for (int k = 0; k < steps; ++k) {  // ascending lanes within each run
+    const float v = __shfl_sync(kFull, gi, mine ? __ffs(mine) - 1 : lane);
+    if (mine) {
+      s += v;
+      mine &= mine - 1u;
+    }
+  }
+  const int first = __ffs(lm) - 1;
+  const int q = 31 - __clz(lead);  // the last run's leader
+  const int tl = __shfl_sync(kFull, t, q);
+  // a new run: every run but a first one that continues the open run
+  const unsigned opened = lead & ~(__shfl_sync(kFull, cont, first) ? 1u << first : 0u);
+  if (opened) {
+    zero_range(df, __shfl_sync(kFull, prev, __ffs(opened) - 1) + 1, tl, lane);
+    __syncwarp();
+  }
+  // the open run ends before this chunk where its first live lane opens one
+  if (own && lane == first && !cont) df[tc] = sc;
+  if (leader && lane != q && (own || !cont)) df[t] = s;
+  sc = __shfl_sync(kFull, s, q);
+  own = (q == first && tl == tc) ? own : true;
+  tc = tl;
+  return true;
+}
+
+// The target of the nearest live source before a (-1: none).
+template <int kLink>
+__device__ __noinline__ int target_before(const void* links, size_t base,
+                                         int a, int n, int off_sent,
+                                         int has_sent, int lane) {
+  for (int c1 = a; c1 > 0; c1 -= 32) {
+    const int i = c1 - 32 + lane;
+    const int t = i >= 0 ? load_target<kLink>(links, base + i, i, n, off_sent,
+                                              has_sent)
+                         : -1;
+    const unsigned lm = __ballot_sync(kFull, t >= 0);
+    if (lm) return __shfl_sync(kFull, t, 31 - __clz(lm));
+  }
+  return -1;
+}
+
+template <int kLink>
+__global__ void __launch_bounds__(kSplitWarps * 32)
+minplus_grad_split_kernel(const float* __restrict__ g,
+                          const void* __restrict__ links,
+                          float* __restrict__ out, int* __restrict__ marks,
+                          long long rows, int n, int tile, int tiles,
+                          int off_sent, int has_sent) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kSplitWarps + (threadIdx.x >> 5);
+  const long long row = w / tiles;
+  if (row >= rows) return;  // whole warps only: the shuffles stay full
+  const int a = (int)(w % tiles) * tile;
+  const int b = min(n, a + tile);
+  const size_t base = (size_t)row * (size_t)n;
+  float* df = out + base;
+
+  // the chunk of sources [c, c + 32): each lane's target (-1 inert or past
+  // the tile) and cotangent
+  auto load = [&](int c, int& t, float& v) {
+    const int i = c + lane;
+    t = -1;
+    v = 0.0f;
+    if (i < b) {
+      t = load_target<kLink>(links, base + i, i, n, off_sent, has_sent);
+      v = g[base + i];
+    }
+  };
+  int tc = -1;  // the open run's target
+  float sc = 0.0f;
+  bool own = false;
+  bool met = false;  // a live source of the tile met: tc starts known
+  bool ok = true;
+  auto fold = [&](int t, float v) {
+    const unsigned lm = __ballot_sync(kFull, t >= 0);
+    if (!lm || !ok) return;
+    if (!met) {  // the run open before the tile, which the tile does not own
+      met = true;
+      tc = target_before<kLink>(links, base, a, n, off_sent, has_sent, lane);
+    }
+    ok = fold_chunk(df, t, v, lane, lm, tc, sc, own);
+  };
+  // four chunks folded while the next four load
+  int t0, t1, t2, t3;
+  float v0, v1, v2, v3;
+  load(a, t0, v0);
+  load(a + 32, t1, v1);
+  load(a + 64, t2, v2);
+  load(a + 96, t3, v3);
+  for (int c0 = a; c0 < b; c0 += 128) {
+    int u0, u1, u2, u3;
+    float x0, x1, x2, x3;
+    load(c0 + 128, u0, x0);
+    load(c0 + 160, u1, x1);
+    load(c0 + 192, u2, x2);
+    load(c0 + 224, u3, x3);
+    fold(t0, v0);
+    fold(t1, v1);
+    fold(t2, v2);
+    fold(t3, v3);
+    if (!ok) {
+      if (lane == 0) marks[row] = 1;
+      return;
+    }
+    t0 = u0, t1 = u1, t2 = u2, t3 = u3;
+    v0 = x0, v1 = x1, v2 = x2, v3 = x3;
+  }
+  if (!met && b == n &&
+      target_before<kLink>(links, base, a, n, off_sent, has_sent, lane) < 0) {
+    zero_range(df, 0, n, lane);  // no live source in the row
+    return;
+  }
+  if (!own) return;
+  // the open run is this tile's: sum it on past the tile's end, up to the
+  // first live source with another target, which must be larger; the last
+  // run of the row zeroes the targets after it
+  int end = n;
+  for (int c0 = b; c0 < n; c0 += 32) {
+    const int i = c0 + lane;
+    int t = -1;
+    float gi = 0.0f;
+    if (i < n) {
+      t = load_target<kLink>(links, base + i, i, n, off_sent, has_sent);
+      gi = g[base + i];
+    }
+    const unsigned other = __ballot_sync(kFull, t >= 0 && t != tc);
+    const unsigned same = __ballot_sync(kFull, t == tc) &
+                          (other ? (1u << (__ffs(other) - 1)) - 1u : kFull);
+    for (unsigned r = same; r; r &= r - 1u)  // warp-uniform, ascending
+      sc += __shfl_sync(kFull, gi, __ffs(r) - 1);
+    if (other) {
+      if (__shfl_sync(kFull, t, __ffs(other) - 1) < tc) {
+        if (lane == 0) marks[row] = 1;
+        return;
+      }
+      end = tc + 1;
+      break;
+    }
+  }
+  if (lane == 0) df[tc] = sc;
+  zero_range(df, tc + 1, end, lane);
 }
 
 template <int kLink>
@@ -415,12 +623,25 @@ binary_grad_scan_reg_kernel(const float* __restrict__ g,
 template <int kLink>
 cudaError_t launch_grad(const float* g, const void* links, float* out,
                         long long rows, int n, int off_sent, int has_sent,
-                        bool long_rows, cudaStream_t stream) {
-  if (long_rows) {  // kGradWarps rows a block, each accumulating in out
-    const long long blocks = (rows + kGradWarps - 1) / kGradWarps;
-    minplus_grad_kernel<kLink, true><<<(unsigned)blocks, kGradWarps * 32, 0,
-                                       stream>>>(g, links, out, rows, n,
-                                                 off_sent, has_sent);
+                        int* marks, cudaStream_t stream) {
+  if (marks) {  // long rows: the row-split mode, then its marked rows
+    cudaError_t err = cudaMemsetAsync(marks, 0, (size_t)rows * sizeof(int), stream);
+    if (err != cudaSuccess) return err;
+    // tiles of kSplitTile sources, halved down to kSplitTileMin while the
+    // rows give fewer than kSplitFill warps
+    int tile = kSplitTile;
+    while (tile > kSplitTileMin && rows * ((n + tile - 1) / tile) < kSplitFill)
+      tile /= 2;
+    const int tiles = (n + tile - 1) / tile;
+    const long long blocks = (rows * tiles + kSplitWarps - 1) / kSplitWarps;
+    minplus_grad_split_kernel<kLink><<<(unsigned)blocks, kSplitWarps * 32, 0,
+                                       stream>>>(g, links, out, marks, rows, n,
+                                                 tile, tiles, off_sent, has_sent);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    minplus_grad_kernel<kLink, true><<<(unsigned)((rows + kGradWarps - 1) / kGradWarps),
+                                       kGradWarps * 32, 0, stream>>>(
+        g, links, out, rows, n, off_sent, has_sent, marks);
     return cudaGetLastError();
   }
   // as many rows a block as their accumulators fit, up to kGradWarps
@@ -436,7 +657,7 @@ cudaError_t launch_grad(const float* g, const void* links, float* out,
   const long long blocks = (rows + warps - 1) / warps;
   minplus_grad_kernel<kLink, false><<<(unsigned)blocks, (unsigned)warps * 32,
                                       smem, stream>>>(g, links, out, rows, n,
-                                                      off_sent, has_sent);
+                                                      off_sent, has_sent, nullptr);
   return cudaGetLastError();
 }
 
@@ -490,23 +711,24 @@ extern "C" {
 
 // K3. g, out: (rows, n) f32; links: (rows, n) of link_kind (0 absolute
 // int32, 1 int16 offsets, 2 int32 offsets). off_sent marks inert offsets
-// when has_sent. All C-contiguous. long_rows: the mode for rows past the
-// shared-memory ceiling (any n; also taken on request). Returns a
-// cudaError_t.
+// when has_sent. All C-contiguous. marks: null for the shared-memory mode;
+// else (rows,) int32 scratch, which selects the long-row mode (any n: the
+// row-split mode, then the one-warp mode on the rows it marks, which it
+// leaves at 1). Returns a cudaError_t.
 int edt_minplus_grad(const void* g, const void* links, void* out,
                      long long rows, int n, int link_kind, int off_sent,
-                     int has_sent, int long_rows, void* stream) {
+                     int has_sent, void* marks, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const float* gg = (const float*)g;
   float* oo = (float*)out;
-  const bool lr = long_rows != 0;
+  int* mk = (int*)marks;
   switch (link_kind) {
     case kAbsI32:
-      return (int)launch_grad<kAbsI32>(gg, links, oo, rows, n, off_sent, has_sent, lr, st);
+      return (int)launch_grad<kAbsI32>(gg, links, oo, rows, n, off_sent, has_sent, mk, st);
     case kOffI16:
-      return (int)launch_grad<kOffI16>(gg, links, oo, rows, n, off_sent, has_sent, lr, st);
+      return (int)launch_grad<kOffI16>(gg, links, oo, rows, n, off_sent, has_sent, mk, st);
     case kOffI32:
-      return (int)launch_grad<kOffI32>(gg, links, oo, rows, n, off_sent, has_sent, lr, st);
+      return (int)launch_grad<kOffI32>(gg, links, oo, rows, n, off_sent, has_sent, mk, st);
   }
   return (int)cudaErrorInvalidValue;
 }

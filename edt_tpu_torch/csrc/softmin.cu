@@ -78,7 +78,9 @@
 //
 // The axis ceilings are the opt-in shared memory over 4 (K5, on rows a
 // block holds) and over 8 (K6). Past them each kernel has a long-row mode
-// (a second instantiation, below) that reads the row from device memory. Costs round twice,
+// (below): K5 a second instantiation that reads the row from device
+// memory, K6 a row-split mode that spreads a row over a warp for each 256
+// targets. Costs round twice,
 // __fadd_rn(f, __fmul_rn(w2, __fmul_rn(k, k))), as in K1 and K2 (built
 // with -fmad=false as well).
 //
@@ -322,21 +324,23 @@ __device__ __forceinline__ float take(float di, float fj, float q, float kk,
   return p;
 }
 
-// K6's second instantiation (kLong) takes rows past its ceiling (any n; the
-// wrapper may also ask for it on a shorter row): f read from device memory
+// K6's second instantiation (kLong), the one-warp mode, takes the rows
+// that the row-split mode below marks (only): f read from device memory
 // (L2), df accumulated in the output row itself, which only this warp
 // touches, zeroed first; __syncwarp orders the scatter's steps as in shared
-// memory. The same sums in the same order: the same bits.
+// memory. The same sums in the same order: the same bits as the
+// shared-memory mode.
 template <bool kLong>
 __global__ void __launch_bounds__(32 * kGradRows)
 softmin_grad_kernel(const float* __restrict__ f, const float* __restrict__ d,
                     const float* __restrict__ g, float* __restrict__ df,
                     float* __restrict__ e, long long rows, int n, float w2,
-                    float t) {
+                    float t, const int* __restrict__ only) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;  // a whole warp: no block-wide barrier follows
+  if (kLong && !only[row]) return;
   const size_t base = (size_t)row * (size_t)n;
   float* s_row = smem + (size_t)(threadIdx.x >> 5) * 2 * n;
   const float* s_f = kLong ? f + base : s_row;
@@ -444,6 +448,230 @@ softmin_grad_kernel(const float* __restrict__ f, const float* __restrict__ d,
     for (int j = lane; j < n; j += 32) df[base + j] = s_df[j];
 }
 
+// K6's row-split mode, for rows past its ceiling (any n; the wrapper may
+// also ask for it on a shorter row). Four launches:
+//
+// 1. row_min_kernel: the minimum of each kMinChunk voxels of f, a block
+//    each; it also clears the row's mark.
+// 2. softmin_grad_split_kernel: a warp for each tile of kTile6 targets of a
+//    row, kSplitRows6 tiles a block. The warp reduces the row's minf from
+//    the partials (the window rule w2 k^2 <= d_i + 30 t - minf needs the
+//    row's, not the tile's), bounds the tile's windows by its largest
+//    gap, and stages f over the tile and a halo of that reach, up to
+//    kHalo6 a side, in shared memory beside a df accumulator over the same
+//    span; f past the halo is read from device memory (L2). Then the
+//    shared-memory mode's arithmetic on its own targets, 32 at a time: Z_i
+//    and e_i over each window (e_i written out), then (g_i / Z_i) p_ij
+//    scattered into the accumulator in ascending k, the j = i + k of the
+//    32 lanes, then their j = i - k, with __syncwarp between. A warp whose
+//    pairs reach past kHalo6 marks its row and stops. The tile's own
+//    targets' df goes to the output; the halo on each side, as far as its
+//    farthest pair (at most kHalo6 = kTile6, so only into the neighbouring
+//    tiles), goes to a scratch buffer, with its width.
+// 3. softmin_grad_combine_kernel: each tile adds to its df the halos of its
+//    two neighbours that reach into it, the left one's, then the right
+//    one's: a fixed order, no atomics, the same bits from launch to launch.
+// 4. The one-warp mode on the marked rows (softmin_grad_kernel<true>); its
+//    warps on other rows read the mark and return.
+//
+// e_i's sums are the shared-memory mode's; df_j sums its terms in another
+// order (tile by tile, then the halos), so it matches that mode to f32
+// round-off, not bit for bit.
+constexpr int kSplitRows6 = 4;  // tiles a block, one warp each
+constexpr int kTile6 = 256;  // targets a tile
+constexpr int kHalo6 = 256;  // halo a side, at most kTile6
+constexpr int kSpan6 = kTile6 + 2 * kHalo6;  // a warp's f and df spans
+constexpr int kMinChunk = 1024;  // voxels a partial minimum
+constexpr int kCombineRows = 8;  // tiles a combine block, one warp each
+
+__global__ void __launch_bounds__(kMaxThreads)
+row_min_kernel(const float* __restrict__ f, float* __restrict__ minp,
+               int* __restrict__ marks, int n, int parts) {
+  const long long row = blockIdx.x / parts;
+  const int p = (int)(blockIdx.x % parts);
+  const size_t base = (size_t)row * (size_t)n;
+  const int hi = min(n, (p + 1) * kMinChunk);
+  float lo = INFINITY, unused = -INFINITY;
+  for (int i = p * kMinChunk + threadIdx.x; i < hi; i += blockDim.x)
+    lo = fminf(lo, f[base + i]);
+  block_min_max(lo, unused);
+  if (threadIdx.x == 0) {
+    minp[blockIdx.x] = lo;
+    if (p == 0) marks[row] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(32 * kSplitRows6)
+softmin_grad_split_kernel(const float* __restrict__ f,
+                          const float* __restrict__ d,
+                          const float* __restrict__ g, float* __restrict__ df,
+                          float* __restrict__ e, int* __restrict__ marks,
+                          int* __restrict__ halo_w, const float* __restrict__ minp,
+                          float* __restrict__ halos, long long rows, int n,
+                          int tiles, int parts, float w2, float t) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kSplitRows6 + (threadIdx.x >> 5);
+  const long long row = w / tiles;
+  if (row >= rows) return;  // a whole warp: no block-wide barrier follows
+  const int a = (int)(w % tiles) * kTile6;
+  const int b = min(n, a + kTile6);
+  const size_t base = (size_t)row * (size_t)n;
+  float* s_f = smem + (size_t)(threadIdx.x >> 5) * 2 * kSpan6;
+  float* s_df = s_f + kSpan6;
+  const int off = a - kHalo6;  // the spans' index of voxel j: j - off
+
+  float minf = INFINITY;
+  for (int p = lane; p < parts; p += 32) minf = fminf(minf, minp[row * parts + p]);
+  for (int o = 16; o > 0; o >>= 1)
+    minf = fminf(minf, __shfl_xor_sync(0xffffffffu, minf, o));
+  const float cut = __fmul_rn(kSoftCut, t);
+  const float ncut = -cut;
+  const float scale = __fdiv_rn(kLog2e, t);  // exponents in base 2
+
+  // the tile's reach: past every window's last step (NaN gaps take none)
+  float gmax = -INFINITY;
+  for (int i = a + lane; i < b; i += 32)
+    gmax = fmaxf(gmax, __fsub_rn(__fadd_rn(d[base + i], cut), minf));
+  for (int o = 16; o > 0; o >>= 1)
+    gmax = fmaxf(gmax, __shfl_xor_sync(0xffffffffu, gmax, o));
+  const float ratio = __fdiv_rn(gmax, w2);
+  const int reach = !(ratio >= 0.0f) ? 0
+                    : ratio >= __fmul_rn((float)n, (float)n) ? n
+                    : (int)sqrtf(ratio) + 2;
+  const int hw = min(reach, kHalo6);
+  const int lo = max(0, a - hw), hi = min(n, b + hw);
+  for (int j = lo + lane; j < hi; j += 32) s_f[j - off] = f[base + j];
+  for (int j = a - hw + lane; j < b + hw; j += 32) s_df[j - off] = 0.0f;
+  __syncwarp();
+  // f_j: staged, or past the halo from device memory
+  auto f_at = [&](int j) {
+    return (j >= lo && j < hi) ? s_f[j - off] : __ldg(f + base + j);
+  };
+
+  int far = -1;  // the lane's farthest step with a pair inside the cut
+  float d_next = a + lane < b ? d[base + a + lane] : 0.0f;
+  float g_next = a + lane < b ? g[base + a + lane] : 0.0f;
+  for (int i0 = a; i0 < b; i0 += 32) {
+    const int i = i0 + lane;
+    const float di = d_next, gi = g_next;
+    if (i + 32 < b) {
+      d_next = d[base + i + 32];
+      g_next = g[base + i + 32];
+    }
+    const float gap = __fsub_rn(__fadd_rn(di, cut), minf);
+    const int kcap = i < b ? max(i, n - 1 - i) : -1;
+
+    float z = 0.0f, acc_e = 0.0f, kf = 0.0f;
+    float held_r[kHeld], held_l[kHeld];  // (i, i + k), (i, i - k); 0: outside
+    int steps = 0, kin = -1;
+    bool go = true;
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const float kk = __fmul_rn(kf, kf);
+      const float q = __fmul_rn(w2, kk);
+      go = go && k <= kcap && q <= gap;
+      held_l[k] = go && k > 0 && k <= i
+                      ? take(di, f_at(i - k), q, kk, ncut, scale, z, acc_e) : 0.0f;
+      held_r[k] = go && k == 0 ? take(di, f_at(i), q, kk, ncut, scale, z, acc_e)
+                  : go && i + k < n
+                      ? take(di, f_at(i + k), q, kk, ncut, scale, z, acc_e) : 0.0f;
+      if (held_l[k] > 0.0f || held_r[k] > 0.0f) kin = k;
+      if (go) steps = k + 1;
+      kf = __fadd_rn(kf, 1.0f);
+    }
+    for (; go && steps <= kcap; ++steps) {
+      const float kk = __fmul_rn(kf, kf);
+      const float q = __fmul_rn(w2, kk);
+      if (!(q <= gap)) break;
+      if (steps <= i && take(di, f_at(i - steps), q, kk, ncut, scale, z, acc_e) > 0.0f)
+        kin = steps;
+      if (i + steps < n && take(di, f_at(i + steps), q, kk, ncut, scale, z, acc_e) > 0.0f)
+        kin = steps;
+      kf = __fadd_rn(kf, 1.0f);
+    }
+    float gz = 0.0f;
+    if (z > 0.0f) {
+      const float rz = __frcp_rn(z);
+      gz = __fmul_rn(gi, rz);
+      acc_e = __fmul_rn(acc_e, rz);
+    }
+    if (i < b) e[base + i] = acc_e;
+
+    const int warp_steps = __reduce_max_sync(0xffffffffu, kin + 1);
+    if (warp_steps - 1 > hw) {  // a pair past the halo: the one-warp mode
+      if (lane == 0) marks[row] = 1;
+      return;
+    }
+    far = max(far, kin);
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      if (k >= warp_steps) break;
+      if (held_r[k] > 0.0f) s_df[i + k - off] = __fmaf_rn(gz, held_r[k], s_df[i + k - off]);
+      __syncwarp();
+      if (held_l[k] > 0.0f) s_df[i - k - off] = __fmaf_rn(gz, held_l[k], s_df[i - k - off]);
+      __syncwarp();
+    }
+    kf = (float)kHeld;
+    for (int k = kHeld; k < warp_steps; ++k) {
+      const float q = __fmul_rn(w2, __fmul_rn(kf, kf));
+      const bool on = k <= kin;
+      if (on && i + k < n) {
+        const float x = __fsub_rn(di, __fadd_rn(s_f[i + k - off], q));
+        if (x >= ncut)
+          s_df[i + k - off] = __fmaf_rn(gz, ex2(__fmul_rn(x, scale)), s_df[i + k - off]);
+      }
+      __syncwarp();
+      if (on && k <= i) {
+        const float x = __fsub_rn(di, __fadd_rn(s_f[i - k - off], q));
+        if (x >= ncut)
+          s_df[i - k - off] = __fmaf_rn(gz, ex2(__fmul_rn(x, scale)), s_df[i - k - off]);
+      }
+      __syncwarp();
+      kf = __fadd_rn(kf, 1.0f);
+    }
+  }
+  __syncwarp();
+  // the tile's own df out; each halo, as far as the farthest pair, to the
+  // scratch (left: the span's first kHalo6 places, right: the next kHalo6)
+  const int h = max(0, __reduce_max_sync(0xffffffffu, far));
+  for (int j = a + lane; j < b; j += 32) df[base + j] = s_df[j - off];
+  float* halo = halos + (size_t)w * 2 * kHalo6;
+  for (int m = lane; m < h; m += 32) {
+    if (a - 1 - m >= 0) halo[kHalo6 - 1 - m] = s_df[kHalo6 - 1 - m];
+    if (b + m < n) halo[kHalo6 + m] = s_df[b + m - off];
+  }
+  if (lane == 0) halo_w[w] = h;
+}
+
+__global__ void __launch_bounds__(32 * kCombineRows)
+softmin_grad_combine_kernel(float* __restrict__ df, const int* __restrict__ marks,
+                            const int* __restrict__ halo_w,
+                            const float* __restrict__ halos, long long rows,
+                            int n, int tiles) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kCombineRows + (threadIdx.x >> 5);
+  const long long row = w / tiles;
+  if (row >= rows || marks[row]) return;
+  const int tile = (int)(w % tiles);
+  const int a = tile * kTile6;
+  const int b = min(n, a + kTile6);
+  float* out = df + (size_t)row * (size_t)n;
+  // the left tile's right halo reaches [a, a + hl), the right tile's left
+  // halo [b - hr, b)
+  const int hl = tile > 0 ? min(halo_w[w - 1], b - a) : 0;
+  const int hr = tile + 1 < tiles ? min(halo_w[w + 1], b - a) : 0;
+  const float* left = hl ? halos + (size_t)(w - 1) * 2 * kHalo6 + kHalo6 : nullptr;
+  const float* right = hr ? halos + (size_t)(w + 1) * 2 * kHalo6 : nullptr;
+  for (int j = a + lane; j < a + hl; j += 32) {
+    float v = __fadd_rn(out[j], left[j - a]);
+    if (j >= b - hr) v = __fadd_rn(v, right[kHalo6 - (b - j)]);
+    out[j] = v;
+  }
+  for (int j = max(a + hl, b - hr) + lane; j < b; j += 32)
+    out[j] = __fadd_rn(out[j], right[kHalo6 - (b - j)]);
+}
+
 int threads_for(int n) {
   const int threads = ((n + 31) / 32) * 32;
   return threads > kMaxThreads ? kMaxThreads : threads;
@@ -488,18 +716,50 @@ int edt_softmin(const void* f, void* out, long long rows, int n, float w2,
   return (int)cudaGetLastError();
 }
 
-// f, d, g, df, e: (rows, n) f32, C-contiguous. long_rows: the mode for
-// rows past the shared-memory ceiling (any n; also taken on request).
-// Returns a cudaError_t.
+// Words (4 B) of the row-split mode's scratch for rows of n.
+long long edt_softmin_grad_work_words(long long rows, int n) {
+  const long long tiles = (n + kTile6 - 1) / kTile6;
+  const long long parts = (n + kMinChunk - 1) / kMinChunk;
+  return rows * (tiles + parts + tiles * 2 * kHalo6);
+}
+
+// f, d, g, df, e: (rows, n) f32, C-contiguous. marks: null for the
+// shared-memory mode; else (rows,) int32, which select the long-row mode
+// (any n: the row-split mode, then the one-warp mode on the rows it marks)
+// and come back 1 where a row took the one-warp mode, with work
+// edt_softmin_grad_work_words(rows, n) words of scratch. Returns a
+// cudaError_t.
 int edt_softmin_grad(const void* f, const void* d, const void* g, void* df,
                      void* e, long long rows, int n, float w2, float t,
-                     int long_rows, void* stream) {
-  if (long_rows) {  // kGradRows rows a block, nothing in shared memory
-    const long long blocks = (rows + kGradRows - 1) / kGradRows;
-    softmin_grad_kernel<true><<<(unsigned)blocks, 32 * kGradRows, 0,
-                                (cudaStream_t)stream>>>(
+                     void* marks_, void* work, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (marks_) {
+    const int tiles = (n + kTile6 - 1) / kTile6;
+    const int parts = (n + kMinChunk - 1) / kMinChunk;
+    int* marks = (int*)marks_;
+    int* halo_w = (int*)work;
+    float* minp = (float*)(halo_w + rows * tiles);
+    float* halos = minp + rows * parts;
+    row_min_kernel<<<(unsigned)(rows * parts), kMaxThreads, 0, st>>>(
+        (const float*)f, minp, marks, n, parts);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)kSplitRows6 * 2 * kSpan6 * sizeof(float);
+    softmin_grad_split_kernel<<<(unsigned)((rows * tiles + kSplitRows6 - 1) / kSplitRows6),
+                                32 * kSplitRows6, smem, st>>>(
         (const float*)f, (const float*)d, (const float*)g, (float*)df,
-        (float*)e, rows, n, w2, t);
+        (float*)e, marks, halo_w, minp, halos, rows, n, tiles, parts, w2, t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    softmin_grad_combine_kernel<<<(unsigned)((rows * tiles + kCombineRows - 1) / kCombineRows),
+                                  32 * kCombineRows, 0, st>>>(
+        (float*)df, marks, halo_w, halos, rows, n, tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    softmin_grad_kernel<true><<<(unsigned)((rows + kGradRows - 1) / kGradRows),
+                                32 * kGradRows, 0, st>>>(
+        (const float*)f, (const float*)d, (const float*)g, (float*)df,
+        (float*)e, rows, n, w2, t, marks);
     return (int)cudaGetLastError();
   }
   // up to kGradRows rows a block, as many as the opt-in shared memory holds
@@ -513,10 +773,9 @@ int edt_softmin_grad(const void* f, const void* d, const void* g, void* df,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (rows + per_block - 1) / per_block;
-  softmin_grad_kernel<false><<<(unsigned)blocks, 32 * per_block, smem,
-                        (cudaStream_t)stream>>>(
+  softmin_grad_kernel<false><<<(unsigned)blocks, 32 * per_block, smem, st>>>(
       (const float*)f, (const float*)d, (const float*)g, (float*)df,
-      (float*)e, rows, n, w2, t);
+      (float*)e, rows, n, w2, t, nullptr);
   return (int)cudaGetLastError();
 }
 

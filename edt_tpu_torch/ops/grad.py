@@ -12,7 +12,9 @@ Both kernels are in ``csrc/grad.cu`` (CUDA C++ for sm_90a, built by
 ``_build``, bound with ctypes). Each wrapper launches its kernel for CUDA
 tensors and takes the plain version only for CPU tensors, and counts its
 launches (``minplus_grad_launches``, ``binary_grad_scan_launches``; K3's in
-its long-row mode also ``minplus_grad_long_launches``). Each is also a
+its long-row mode also ``minplus_grad_split_launches`` for the row-split
+kernel and ``minplus_grad_long_launches`` for the one-warp kernel that
+follows it on the rows it marks). Each is also a
 ``torch.library`` custom op: ``edt_tpu_torch::minplus_grad`` and
 ``edt_tpu_torch::binary_grad_scan``.
 """
@@ -30,15 +32,31 @@ from edt_tpu_torch.ops.minplus import MAX_SMEM_BYTES, _check
 # Longest row of K3's shared-memory mode: each warp keeps its row's f32
 # accumulator in shared memory, 4 B a voxel, and at the longest rows a
 # block holds one warp, within an H100 block's opt-in 232448 bytes. Longer
-# rows take its long-row mode (the accumulator in the output row). K4 keeps
-# nothing in shared memory and takes any length in its one mode.
+# rows take its long-row mode: the row-split mode (a warp for each 256 to
+# 1024 sources, runs summed in registers), then the one-warp mode (the
+# accumulator in the output row) on the rows whose links do not ascend.
+# K4 keeps nothing in shared memory and takes any length in its one mode.
 MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
+# Rows from this length up take the row-split mode below MAX_AXIS too, at
+# any row count: it gives the shared-memory mode's bits, and the
+# shared-memory mode never fills the card there. Its accumulators leave
+# room for at most MAX_AXIS // n rows an SM (28 at 2048, one at 32768),
+# each a warp sweeping n / 32 dependent chunks, so however many rows there
+# are, each SM runs fewer warps than it needs to hide the loads. The sweep
+# ``python3 chip_smoke.py k3_modes`` (8 rows up to volumes of 134M voxels,
+# n from 2048 to 32768; PERF.md) found the row-split mode 1.5x to 33x
+# faster on an H100 at every shape it tries.
+SPLIT_MIN_AXIS = 2048
 
 # csrc/grad.cu's link_kind codes
 _ABS_I32, _OFF_I16, _OFF_I32 = 0, 1, 2
 
 minplus_grad_launches = 0
+minplus_grad_split_launches = 0
 minplus_grad_long_launches = 0
+# the last long-row call's (R,) int32 marks on its card: 1 where a row took
+# the one-warp mode
+last_one_warp_rows = None
 binary_grad_scan_launches = 0
 
 
@@ -115,7 +133,7 @@ def binary_grad_scan_plain(g, offsets, off_sent=None):
 def _kernels():
     lib = _build.load("grad")
     fns = (lib.edt_minplus_grad, lib.edt_binary_grad_scan)
-    for fn, mode in zip(fns, ([ctypes.c_int], [])):  # K3's long_rows flag
+    for fn, mode in zip(fns, ([ctypes.c_void_p], [])):  # K3's marks
         fn.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, *mode, ctypes.c_void_p]
@@ -153,17 +171,19 @@ def _launch(fn, name, g, links, kind, off_sent, *mode):
 
 
 def minplus_grad(g, argj=None, offsets=None, off_sent=None, *,
-                 _long_rows=False):
+                 _long_rows=None):
     """df[r, j] = sum_i g[r, i] [link[r, i] == j]: the VJP of K2's argmin.
 
     g: (R, n) f32. Exactly one of ``argj`` (absolute int32 indices,
     negative = inert) and ``offsets`` (int16/int32 ``argj - i``;
     ``off_sent`` marks inert voxels). All C-contiguous on one device. CUDA
-    tensors run the K3 kernel (its long-row mode past ``MAX_AXIS``, or with
-    ``_long_rows``, which holds the two modes against each other); CPU
-    tensors the plain version.
+    tensors run the K3 kernel: its long-row mode past ``MAX_AXIS`` and
+    from ``SPLIT_MIN_AXIS`` up, its shared-memory mode on shorter rows;
+    below ``MAX_AXIS``, ``_long_rows`` True or False forces one mode, to
+    hold the two against each other. CPU tensors take the plain version.
     """
-    global minplus_grad_launches, minplus_grad_long_launches
+    global minplus_grad_launches, minplus_grad_split_launches
+    global minplus_grad_long_launches, last_one_warp_rows
     _one_link_input(argj, offsets)
     if g.device.type == "cpu":
         return minplus_grad_plain(g, argj, offsets, off_sent)
@@ -176,11 +196,17 @@ def minplus_grad(g, argj=None, offsets=None, off_sent=None, *,
         kind, off_sent = _ABS_I32, None
     else:
         kind = _OFF_I16 if offsets.dtype == torch.int16 else _OFF_I32
-    long_rows = _long_rows or n > MAX_AXIS
+    long_rows = n > MAX_AXIS or (n >= SPLIT_MIN_AXIS if _long_rows is None
+                                 else _long_rows)
+    marks = (torch.empty(R, dtype=torch.int32, device=g.device) if long_rows
+             else None)
     out = _launch(_kernels()[0], "minplus_grad", g, links, kind, off_sent,
-                  int(long_rows))
+                  None if marks is None else marks.data_ptr())
     minplus_grad_launches += 1
-    minplus_grad_long_launches += long_rows
+    if long_rows:
+        minplus_grad_split_launches += 1
+        minplus_grad_long_launches += 1
+        last_one_warp_rows = marks
     return out
 
 

@@ -17,8 +17,10 @@ Both kernels are in ``csrc/softmin.cu`` (CUDA C++ for sm_90a, built by
 exp(-SOFT_CUT), as the TPU kernels do, so they match the plain versions to
 f32 round-off. Each wrapper launches its kernel for CUDA tensors and takes
 the plain version only for CPU tensors, and counts its launches
-(``launches`` for K5, ``grad_launches`` for K6; ``long_launches`` and
-``grad_long_launches`` those in their long-row modes). Each is also a
+(``launches`` for K5, ``grad_launches`` for K6; ``long_launches`` those of
+K5's long-row mode; ``grad_split_launches`` those of K6's row-split mode,
+its long-row mode, and ``grad_long_launches`` those of the one-warp kernel
+that follows it on the rows it marks). Each is also a
 ``torch.library`` custom op: ``edt_tpu_torch::softmin`` and
 ``edt_tpu_torch::softmin_grad``.
 """
@@ -41,14 +43,21 @@ SOFT_CUT = 30.0
 # warp holds, with pads and a table, 16 B a voxel), K6 the row of f beside
 # its f32 df accumulator (8 B a voxel), within an H100 block's opt-in
 # 232448 bytes less the kernels' few static bytes. Longer rows take each
-# kernel's long-row mode (the row read from device memory).
+# kernel's long-row mode: K5's reads the row from device memory; K6's splits
+# a row into tiles of 256 targets, a warp each, then runs the one-warp mode
+# (the row read from device memory) on the rows whose pairs reach past a
+# tile's halo of 256.
 MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
 GRAD_MAX_AXIS = (MAX_SMEM_BYTES - 256) // 8
 
 launches = 0
 grad_launches = 0
 long_launches = 0
+grad_split_launches = 0
 grad_long_launches = 0
+# the last long-row K6 call's (R,) int32 marks on its card: 1 where a row
+# took the one-warp mode
+last_one_warp_rows = None
 
 
 def softmin_plain(f, w2, t):
@@ -96,9 +105,12 @@ def _kernels():
         ctypes.c_int, ctypes.c_void_p]
     bwd.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    words = lib.edt_softmin_grad_work_words
+    words.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    words.restype = ctypes.c_longlong
+    return fwd, bwd, words
 
 
 def _check_cuda(name, f, t):
@@ -153,7 +165,8 @@ def softmin_grad(f, d, g, w2, t, *, _long_rows=False):
     mode past ``GRAD_MAX_AXIS``, or with ``_long_rows``, which holds the two
     modes against each other); CPU tensors the plain version.
     """
-    global grad_launches, grad_long_launches
+    global grad_launches, grad_split_launches, grad_long_launches
+    global last_one_warp_rows
     if f.device.type == "cpu":
         return softmin_grad_plain(f, d, g, w2, t)
     R, n = _check_cuda("softmin_grad", f, t)
@@ -164,15 +177,24 @@ def softmin_grad(f, d, g, w2, t, *, _long_rows=False):
     if R == 0 or n == 0:
         return df, e
     long_rows = _long_rows or n > GRAD_MAX_AXIS
+    _, bwd, words = _kernels()
+    marks = work = None
+    if long_rows:
+        marks = torch.empty(R, dtype=torch.int32, device=f.device)
+        work = torch.empty(words(R, n), dtype=torch.int32, device=f.device)
     with torch.cuda.device(f.device):  # the runtime launches on the current card
-        err = _kernels()[1](f.data_ptr(), d.data_ptr(), g.data_ptr(),
-                            df.data_ptr(), e.data_ptr(), R, n, core.f32(w2),
-                            core.f32(t), int(long_rows),
-                            torch.cuda.current_stream().cuda_stream)
+        err = bwd(f.data_ptr(), d.data_ptr(), g.data_ptr(), df.data_ptr(),
+                  e.data_ptr(), R, n, core.f32(w2), core.f32(t),
+                  *((None, None) if marks is None else
+                    (marks.data_ptr(), work.data_ptr())),
+                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"softmin_grad kernel launch failed: cudaError {err}")
     grad_launches += 1
-    grad_long_launches += long_rows
+    if long_rows:
+        grad_split_launches += 1
+        grad_long_launches += 1
+        last_one_warp_rows = marks
     return df, e
 
 

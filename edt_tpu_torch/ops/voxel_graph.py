@@ -108,22 +108,27 @@ def doubled_3d_torch(fg, g, black_border, zero_tail=(True, True, True)):
     return D
 
 
-def _edtsq_doubled(fg, graph, half_anisotropy, black_border):
+def _edtsq_doubled(fg, graph, half_anisotropy, black_border,
+                   minplus_fn=None):
     """Doubling, binary EDT at half pitch with the default axis order, and
     the even-site subsample, all on fg's device."""
     double = doubled_2d_torch if fg.dim() == 2 else doubled_3d_torch
     D = double(fg, graph, black_border)
-    d2 = compose.edtsq(D, half_anisotropy, black_border, binary=True)
+    d2 = compose.edtsq(D, half_anisotropy, black_border,
+                       minplus_fn=minplus_fn, binary=True)
     return d2[(slice(0, None, 2),) * fg.dim()]
 
 
-def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False):
+def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False,
+                            minplus_fn=None):
     """Device-native 3-D voxel-graph squared EDT on torch tensors
     (counterpart of ``edtsq_voxel_graph_jnp``); runs on ``labels``'s device.
 
     "x" (bit 0b1) is the last array axis (C-order convention). Float labels
-    are foreground where > 0, others where != 0. For the NumPy-facing,
-    order-aware form use ``edtsq_voxel_graph``.
+    are foreground where > 0, others where != 0. ``minplus_fn``: the
+    min-plus alone, passed on to ``compose.edtsq`` (the JAX package's
+    contract; None: K1 on CUDA tensors, the plain pass on CPU tensors). For
+    the NumPy-facing, order-aware form use ``edtsq_voxel_graph``.
     """
     if labels.dim() != 3:
         raise ValueError(
@@ -131,7 +136,8 @@ def edtsq_voxel_graph_torch(labels, graph, anisotropy, black_border=False):
     fg = labels > 0 if labels.is_floating_point() else labels != 0
     half = [float(np.float32(a) / np.float32(2.0))
             for a in np.asarray(anisotropy, np.float32).reshape(3)]
-    return _edtsq_doubled(fg, graph.to(torch.uint8), half, black_border)
+    return _edtsq_doubled(fg, graph.to(torch.uint8), half, black_border,
+                          minplus_fn)
 
 
 def edtsq_voxel_graph(data, graph, anisotropy, black_border, arr_order,

@@ -13,10 +13,18 @@ long-row modes shows only on a card: here and in the ``long`` phase of
 Each mode is held against its plain version one length past its ceiling
 (K1 and K2 bit-exact; K3, K5 and K6 within the tolerances of
 ``tests/test_torch_cuda.py``), and, forced on a shorter row through the
-wrappers' private ``_long_rows``, against the shared-memory mode (K1, K2,
-K3 and K6 bit-exact: the same arithmetic in the same order; K5 within
-tolerance: its warp mode walks in pairs of steps).
+wrappers' private ``_long_rows``, against the shared-memory mode (K1, K2
+and K3 bit-exact: the same sums in the same order; K5 within tolerance:
+its warp mode walks in pairs of steps; K6's df within tolerance, its e
+bit-exact: its row-split mode sums df tile by tile, then the halos).
+K3's and K6's long-row modes split a row over many warps and send the
+rows they cannot take (K3: links that do not ascend; K6: pairs past a
+tile's halo) to a one-warp mode in a second launch; the marks they leave
+(``last_one_warp_rows``) are checked too.
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -27,6 +35,27 @@ from edt_tpu_torch.ops import argmin, compose, core, grad, minplus, softmin
 from edt_tpu_torch.ops import voxel_graph as vg
 
 torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _descends(targets):
+    """(R,) int32: 1 where a row's live targets (>= 0) ever descend."""
+    prev = torch.nn.functional.pad(targets, (1, 0), value=-1)[:, :-1]
+    before = torch.cummax(prev, dim=1).values
+    return ((targets >= 0) & (targets < before)).any(dim=1).to(torch.int32)
 
 
 @pytest.fixture
@@ -100,7 +129,7 @@ def test_argmin_and_grad_long_rows(cuda, n):
         rd, ro = argmin.minplus_argmin(ft, 36.0, cnt, emit_offsets=True)
         assert_exact(d, rd)
         assert torch.equal(o, ro)
-        rdf = grad.minplus_grad(g, offsets=o, off_sent=sent)
+        rdf = grad.minplus_grad(g, offsets=o, off_sent=sent, _long_rows=False)
         assert torch.equal(df.view(torch.int32), rdf.view(torch.int32))
 
 
@@ -123,11 +152,13 @@ def test_softmin_long_rows(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [300, softmin.GRAD_MAX_AXIS + 1])
+@pytest.mark.parametrize("n", [300, softmin.GRAD_MAX_AXIS,
+                               softmin.GRAD_MAX_AXIS + 1])
 def test_softmin_grad_long_rows(cuda, n):
     """K6's long-row mode: df within rtol=1e-4, atol=1e-4 max|df| and
-    sum(g * e) within rtol=1e-3 of the plain version past its ceiling;
-    bit-exact to the shared-memory mode below it."""
+    sum(g * e) within rtol=1e-3 of the plain version past its ceiling; at
+    and below it, df within the same tolerance of the shared-memory mode
+    (the row-split mode sums df in another order) and e bit-exact."""
     rng = np.random.default_rng(n)
     ft = torch.from_numpy(_soft_rows(rng, 4, n)).to(cuda)
     d = softmin.softmin(ft, 36.0, 0.3)
@@ -141,8 +172,124 @@ def test_softmin_grad_long_rows(cuda, n):
                                    atol=0.0)
     else:
         rdf, re = softmin.softmin_grad(ft, d, g, 36.0, 0.3)
-        assert torch.equal(df.view(torch.int32), rdf.view(torch.int32))
+        torch.testing.assert_close(df, rdf, rtol=1e-4,
+                                   atol=1e-4 * float(rdf.abs().max()))
         assert torch.equal(e.view(torch.int32), re.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 256])
+def test_grad_row_split_past_the_ceiling(cuda, rows):
+    """K3's long-row mode one past its ceiling on K2's links of label
+    rows: within rtol=1e-5 of the plain version (``scatter_add_`` on the
+    card sums in another order), exactly the rows whose links descend
+    marked, one row-split and one one-warp launch, and two calls the same
+    bits."""
+    n = grad.MAX_AXIS + 1
+    rng = np.random.default_rng(rows)
+    f, lab = _label_rows(rng, rows, n)
+    cnt = soft._wall_counts(torch.from_numpy(lab).to(cuda), 1, True).contiguous()
+    _, o = argmin.minplus_argmin(torch.from_numpy(f).to(cuda), 36.0, cnt,
+                                 emit_offsets=True)
+    sent = torch.iinfo(o.dtype).min
+    g = torch.from_numpy(rng.uniform(-1, 1, (rows, n)).astype(np.float32)).to(cuda)
+    before = (grad.minplus_grad_split_launches, grad.minplus_grad_long_launches)
+    df = grad.minplus_grad(g, offsets=o, off_sent=sent)
+    assert (grad.minplus_grad_split_launches,
+            grad.minplus_grad_long_launches) == (before[0] + 1, before[1] + 1)
+    cs = _chip_smoke()
+    assert torch.equal(grad.last_one_warp_rows, _descends(cs.k3_targets(o, sent)))
+    rdf = grad.minplus_grad_plain(g, offsets=o, off_sent=sent)
+    torch.testing.assert_close(df, rdf, rtol=1e-5, atol=1e-5)
+    assert torch.equal(_bits(df), _bits(grad.minplus_grad(g, offsets=o,
+                                                          off_sent=sent)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, n", [(16, grad.SPLIT_MIN_AXIS - 1),
+                                     (16, grad.SPLIT_MIN_AXIS),
+                                     (4096, grad.SPLIT_MIN_AXIS)])
+def test_grad_takes_the_row_split_mode_from_split_min_axis(cuda, rows, n):
+    """Below its ceiling K3 takes the row-split mode from SPLIT_MIN_AXIS
+    up, on its own and on many rows too: the same bits as the
+    shared-memory mode."""
+    rng = np.random.default_rng(n)
+    f, lab = _label_rows(rng, rows, n)
+    cnt = soft._wall_counts(torch.from_numpy(lab).to(cuda), 1, True).contiguous()
+    _, o = argmin.minplus_argmin(torch.from_numpy(f).to(cuda), 36.0, cnt,
+                                 emit_offsets=True)
+    sent = torch.iinfo(o.dtype).min
+    g = torch.from_numpy(rng.uniform(-1, 1, (rows, n)).astype(np.float32)).to(cuda)
+    before = grad.minplus_grad_split_launches
+    df = grad.minplus_grad(g, offsets=o, off_sent=sent)
+    assert grad.minplus_grad_split_launches == before + (n >= grad.SPLIT_MIN_AXIS)
+    ref = grad.minplus_grad(g, offsets=o, off_sent=sent, _long_rows=False)
+    assert torch.equal(_bits(df), _bits(ref))
+
+
+@pytest.mark.cuda
+def test_grad_row_split_bit_equal_to_shared_memory_mode(cuda):
+    """At K3's ceiling, 58048: the row-split mode forced with
+    ``_long_rows`` bit-equal to the shared-memory mode, on rows of K2's
+    links and on ``chip_smoke.k3_split_rows`` (runs across tile ends, a
+    run longer than a tile, inert sources at tile ends, links that leave
+    the row, and two rows whose links descend, which go to the one-warp
+    mode), and to the host twin ``chip_smoke.k3_split``; the marks as
+    expected; two calls the same bits."""
+    n = grad.MAX_AXIS
+    cs = _chip_smoke()
+    rng = np.random.default_rng(3)
+    f, lab = _label_rows(rng, 4, n)
+    cnt = soft._wall_counts(torch.from_numpy(lab).to(cuda), 1, True).contiguous()
+    _, o2 = argmin.minplus_argmin(torch.from_numpy(f).to(cuda), 36.0, cnt,
+                                  emit_offsets=True)
+    assert o2.dtype == torch.int32
+    g, o, sent, marks = cs.k3_split_rows(rng, n)
+    assert sent == torch.iinfo(torch.int32).min
+    o = torch.cat([o2, torch.from_numpy(o).to(cuda)])
+    g = torch.cat([torch.from_numpy(rng.uniform(-1, 1, (4, n)).astype(np.float32)),
+                   torch.from_numpy(g)]).to(cuda)
+    targets = cs.k3_targets(o, sent)
+    want = torch.cat([_descends(targets[:4]).cpu(), torch.from_numpy(marks)])
+    df = grad.minplus_grad(g, offsets=o, off_sent=sent, _long_rows=True)
+    assert torch.equal(grad.last_one_warp_rows.cpu(), want)
+    ref = grad.minplus_grad(g, offsets=o, off_sent=sent, _long_rows=False)
+    assert torch.equal(_bits(df), _bits(ref))
+    twin, twin_marks = cs.k3_split(g, targets)
+    assert torch.equal(twin_marks, want)
+    assert torch.equal(_bits(df.cpu()), _bits(twin))
+    assert torch.equal(_bits(df), _bits(grad.minplus_grad(
+        g, offsets=o, off_sent=sent, _long_rows=True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 256])
+def test_softmin_grad_row_split_past_the_ceiling(cuda, rows):
+    """K6's long-row mode one past its ceiling, 8 and 256 rows: df within
+    rtol=1e-4, atol=1e-4 max|df|, e within rtol=1e-4, sum(g * e) within
+    rtol=1e-3 of the plain version; row 1 has one source, so its pairs
+    reach past every tile's halo: it alone is marked and takes the one-warp
+    mode; two calls the same bits."""
+    n = softmin.GRAD_MAX_AXIS + 1
+    rng = np.random.default_rng(rows)
+    f = _soft_rows(rng, rows, n)
+    f[1] = np.inf
+    f[1, 40] = 0.0
+    ft = torch.from_numpy(f).to(cuda)
+    d = softmin.softmin(ft, 36.0, 0.3)
+    g = torch.from_numpy(rng.uniform(-1, 1, (rows, n)).astype(np.float32)).to(cuda)
+    df, e = softmin.softmin_grad(ft, d, g, 36.0, 0.3)
+    want = torch.zeros(rows, dtype=torch.int32)
+    want[1] = 1
+    assert torch.equal(softmin.last_one_warp_rows.cpu(), want)
+    rdf, re = softmin.softmin_grad_plain(ft, d, g, 36.0, 0.3)
+    torch.testing.assert_close(df, rdf, rtol=1e-4,
+                               atol=1e-4 * float(rdf.abs().max()))
+    torch.testing.assert_close(e, re, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close((g * e).sum(), (g * re).sum(), rtol=1e-3,
+                               atol=0.0)
+    df2, e2 = softmin.softmin_grad(ft, d, g, 36.0, 0.3)
+    assert torch.equal(_bits(df), _bits(df2)) and torch.equal(_bits(e), _bits(e2))
 
 
 @pytest.mark.cuda

@@ -207,6 +207,40 @@ def test_device_native_transform_matches_jax():
         assert_same(got.numpy(), ref)
 
 
+def test_device_native_transform_takes_minplus_fn_fifth():
+    """C8: ``edtsq_voxel_graph_torch`` takes ``minplus_fn`` at the JAX
+    package's fifth position and passes it to ``compose.edtsq``: called
+    positionally with the plain min-plus on both sides, bit-equal to
+    ``edtsq_voxel_graph_jnp``, and the given min-plus is the one that
+    runs (unmasked: the doubled volume is binary)."""
+    import jax
+    import jax.numpy as jnp
+
+    from edt_tpu.ops import core as jcore
+    from edt_tpu_torch.ops import core
+
+    calls = []
+
+    def port_minplus(f, start, end, w2, masked):
+        calls.append(masked)
+        return core.minplus_masked(f, None, w2)
+
+    def jax_minplus(f, start, end, w2, masked):
+        return jcore.minplus_masked(f, None, w2)
+
+    labels, graph = _random_case((6, 7, 8), seed=13)
+    for bb in (False, True):
+        calls.clear()
+        got = vg.edtsq_voxel_graph_torch(torch.from_numpy(labels),
+                                         torch.from_numpy(graph),
+                                         (6.0, 6.0, 30.0), bb, port_minplus)
+        ref = jax.jit(lambda v, g: jvg.edtsq_voxel_graph_jnp(  # noqa: B023
+            v, g, (6.0, 6.0, 30.0), bb, jax_minplus))(  # noqa: B023
+                jnp.asarray(labels), jnp.asarray(graph))
+        assert_same(got.numpy(), np.asarray(ref))
+        assert calls == [False, False]
+
+
 def test_past_the_ceiling_raises(monkeypatch):
     """A doubled axis past K1's shared-memory ceiling no longer raises: K1
     takes such rows in its long-row mode, so both entry points run at any
