@@ -78,7 +78,12 @@ paths:
   wall ms on one card and on all of them, with the host copies in
   threads and one card after another, a staged split (upload, passes,
   rotations, gather) and each card's profile (copies, kernels, idle
-  share). With one card, the 768^3 call stays on it (counter 0).
+  share). With one card, the 768^3 call stays on it (counter 0);
+- K1 where its row floor walks far (phase ``k1_floor``): K1 alone on the
+  passes of ``binary_edtsq`` of a 512^3 ball at (1, 1, 1) and (6, 6, 30),
+  of bench.py's volume at 768^3 and of its ``sdf``'s background, each
+  pass bit-exact, with the candidates a voxel that its row floor and
+  that 32-voxel chunk floors (``k1_search(floor="chunk")``) visit.
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -356,61 +361,192 @@ def k1_candidates(f, ss, se, w2, black_border, masked):
     return int((hi - lo).clamp(min=0).sum())
 
 
-def k1_search(f, ss, se, w2, black_border, masked):
-    """K1's outward search emulated in torch with the kernel's roundings:
-    (d, candidates, steps, warp steps) on these inputs. A target holds
-    best = f_i, then for k = 1, 2, ... up to min(row radius, max(kl, kr))
-    takes the j = i - k (k <= kl = i - ss) and j = i + k (k <= kr =
-    se - 1 - i) of its segment (binary: of the row), until lb + w2 k^2
-    exceeds min(best, wall_i), lb the min f of the segment on masked rows
-    up to 512 (one warp a row), of the row otherwise; d is
-    min(best, wall_i). A warp holds 32 adjacent targets and runs as many
-    steps as its slowest. The kernel's values are these, bit for bit."""
+def k1_chunk_floors(f):
+    """K1's chunk floors on these binary rows: (cmin, pre, suf), each
+    (R, ceil(n / 32)): each 32-voxel chunk's min f, and the running minima
+    of cmin from the row's start to the chunk and from the chunk to the
+    row's end."""
     from torch.nn.functional import pad
 
+    R, n = f.shape
+    nc = (n + 31) // 32
+    cmin = pad(f, (0, nc * 32 - n), value=float("inf")).reshape(R, nc, 32) \
+        .amin(dim=-1)
+    return (cmin, cmin.cummin(dim=1).values,
+            cmin.flip(1).cummin(dim=1).values.flip(1))
+
+
+def k1_search(f, ss, se, w2, black_border, masked, floor="row",
+              by_row=False):
+    """K1's outward search emulated in torch with the kernel's roundings:
+    (d, candidates, steps, warp steps) on these inputs; candidates count
+    each target's own voxel and every other j it loads (``by_row``: an
+    (R,) tensor of each row's).
+
+    Each target i holds lim = min(f_i, wall_i) and takes, for k = 1, 2,
+    ..., the j = i - k (k <= min(r, kl), kl = i - ss) and j = i + k (k <=
+    min(r, kr), kr = se - 1 - i) of its segment (binary: of the row), r
+    the row radius, each lowering lim to min(lim, f_j + w2 k^2), both
+    sides tested with the lim held before step k; d is the final lim. It
+    stops taking a side's candidates once a floor below all of them plus
+    w2 k^2 exceeds lim (row floor) or reaches it (chunk floors):
+
+    - ``floor="row"``, the kernel's: both sides stop together once lb +
+      w2 k^2 > lim, lb the row's min f (the segment's on masked rows up
+      to 512, which one warp holds).
+    - ``floor="chunk"``, a search the kernel does not run, emulated to
+      count what it would visit: masked rows as above. On binary rows a
+      warp (32 adjacent targets, one chunk of 32 voxels) votes: where
+      each of its targets' f is its chunk's min f (cmin of
+      ``k1_chunk_floors``), as on flat heights, and one would walk past
+      a chunk under the row floor (lb + w2 32^2 < f_i), it takes the
+      chunk floors, else the row floor. Under the chunk floors a side of
+      a target skips the rest of a chunk c once cmin[c] + w2 k^2 >= lim
+      and ends on entering c once pre[c] + w2 k^2 >= lim (suf[c] on the
+      right; at k = 1 its own chunk's); a step in which it takes neither
+      side jumps to the nearer of the sides' next chunks. Every j so
+      skipped costs at least lim, so d is the same.
+
+    A step is one k of a target (both sides); a warp runs as many steps
+    as its slowest target. The kernel's values are these, bit for bit."""
     from edt_tpu_torch.ops import core
 
     R, n = f.shape
-    inf = float("inf")
+    if floor not in ("chunk", "row"):
+        raise ValueError(f"floor: {floor!r}")
     w2t = torch.tensor(core.f32(w2), dtype=torch.float32, device=f.device)
     wall = k1_walls(f, ss, se, w2, black_border, masked)
-    lb = f.amin(dim=1, keepdim=True)
-    if masked and n <= 512:  # segment mins, gathered at each segment start
-        lb = torch.full_like(f, inf).scatter_reduce(
-            1, ss.long(), f, "amin").gather(1, ss.long())
     i = torch.arange(n, device=f.device)
     kl, kr = (i - ss, se - 1 - i) if masked else (i, n - 1 - i)
-    kmax = torch.minimum(row_radii(f, torch.minimum(f, wall), w2),
-                         torch.maximum(kl, kr))
-    best = f + w2t * 0.0
-    lim = torch.minimum(best, wall)
+    r = row_radii(f, torch.minimum(f, wall), w2)
+    lim = torch.minimum(f + w2t * 0.0, wall)
+    lb = f.amin(dim=1, keepdim=True)
+    if masked and n <= 512:  # segment mins, gathered at each segment start
+        lb = torch.full_like(f, float("inf")).scatter_reduce(
+            1, ss.long(), f, "amin").gather(1, ss.long())
+    d, count, steps = _k1_row_search(f, w2t, lb, r, kl, kr, wall, lim)
+    if floor == "chunk" and not masked:
+        floors = k1_chunk_floors(f)
+        own = floors[0].repeat_interleave(32, dim=1)[:, :n]
+        far = (lb + w2t * 1024.0) < f  # walks past a chunk under lb
+        vote = (_k1_lanes(own >= f, True).all(dim=-1)
+                & _k1_lanes(far, False).any(dim=-1))
+        if bool(vote.any()):
+            chunk = vote.repeat_interleave(32, dim=1)[:, :n]
+            d2, count2, steps2 = _k1_chunk_search(f, w2t, floors, r, kl, kr,
+                                                  lim)
+            if not torch.equal(d2, d):
+                raise AssertionError("k1_search: the two floors disagree")
+            count = torch.where(chunk, count2, count)
+            steps = torch.where(chunk, steps2, steps)
+    warp = _k1_lanes(steps, 0).amax(dim=-1)
+    count = count.sum(dim=1) + n
+    return (d, count if by_row else int(count.sum()), int(steps.sum()),
+            32 * int(warp.sum()))
+
+
+def _k1_lanes(x, fill):
+    """(R, n) -> (R, ceil(n / 32), 32): each warp's 32 adjacent targets."""
+    from torch.nn.functional import pad
+
+    return pad(x, (0, -x.shape[1] % 32), value=fill) \
+        .reshape(x.shape[0], -1, 32)
+
+
+def _k1_row_search(f, w2t, lb, r, kl, kr, wall, lim):
+    """``k1_search`` under one floor lb (the row's or the segment's min f):
+    (d, each target's candidates but its own, each target's steps)."""
+    from torch.nn.functional import pad
+
+    R, n = f.shape
+    inf = float("inf")
+    kmax = torch.minimum(r, torch.maximum(kl, kr))
+    best = lim.clone()
     active = torch.ones_like(f, dtype=torch.bool)
     steps = torch.zeros_like(f, dtype=torch.int32)
-    count = R * n
+    count = torch.zeros_like(f, dtype=torch.int64)
     for k in range(1, int(kmax.max()) + 1 if n else 1):
         kf = torch.tensor(float(k), dtype=torch.float32, device=f.device)
         q = w2t * (kf * kf)
         active &= (kmax >= k) & ~((lb + q) > lim)
         live_l, live_r = active & (kl >= k), active & (kr >= k)
-        nl, nr = int(live_l.sum()), int(live_r.sum())
-        if nl + nr == 0:
+        if not bool((live_l | live_r).any()):
             break
-        count += nl + nr
+        count += live_l.long() + live_r.long()
         steps += active
         cl = pad(f[:, :n - k], (k, 0), value=inf) + q
         best = torch.where(live_l, torch.minimum(best, cl), best)
         cr = pad(f[:, k:], (0, k), value=inf) + q
         best = torch.where(live_r, torch.minimum(best, cr), best)
         lim = torch.minimum(best, wall)
-    warp = pad(steps, (0, -n % 32)).reshape(R, -1, 32).amax(dim=-1)
-    return lim, count, int(steps.sum()), 32 * int(warp.sum())
+    return lim, count, steps
 
 
-def k1_bound_ms(f, ss, se, w2, black_border, masked, candidates):
-    """Least time for K1's work on the card: HBM bytes (f, and ss/se when
-    masked, read once; d written once) or f32 operations (4 a candidate
-    the search needs: square, scale, add, min), whichever is larger."""
-    return bound_ms(f.numel() * (16 if masked else 8), 4 * candidates)
+def _k1_chunk_search(f, w2t, floors, r, kl, kr, lim):
+    """``k1_search`` under the chunk floors of binary rows, every target
+    at once as the kernel runs it: a target runs step k only if its last
+    step took a candidate (k - 1) or jumped to k. Returns (d, each
+    target's candidates but its own, each target's steps)."""
+    from torch.nn.functional import pad
+
+    R, n = f.shape
+    inf = float("inf")
+    cmin, pre, suf = floors
+    nc = cmin.shape[1]
+    i = torch.arange(n, device=f.device)
+    c0 = (i // 32).expand(R, n)
+    end = (torch.minimum(r, kl).expand(R, n), torch.minimum(r, kr).expand(R, n))
+    nxt = [((i & 31) + 1).expand(R, n).clone(),
+           (32 - (i & 31)).expand(R, n).clone()]
+    own = cmin.gather(1, c0)
+    flo = [own, own]
+    # step 1 ends a side that its own chunk's pre (suf) bounds already
+    live = [(end[0] >= 1) & ~((pre.gather(1, c0) + w2t) >= lim),
+            (end[1] >= 1) & ~((suf.gather(1, c0) + w2t) >= lim)]
+    tables = ((pre, -1), (suf, 1))
+    kt = torch.ones_like(f, dtype=torch.int64)  # each target's next step
+    big = torch.full_like(kt, 2 ** 62)
+    steps = torch.zeros_like(f, dtype=torch.int32)
+    count = torch.zeros_like(f, dtype=torch.int64)
+    k = 1
+    while True:
+        on = live[0] | live[1]
+        if not bool(on.any()):
+            break
+        k = max(k, int(kt[on].min()))
+        ex = on & (kt == k)
+        q = w2t * torch.tensor(float(k) * float(k), device=f.device)
+        take = []
+        for s, (emin, sign) in enumerate(tables):
+            c = torch.div(i + sign * k, 32, rounding_mode="floor") \
+                .clamp(0, nc - 1).expand(R, n)
+            enter = ex & live[s] & (k == nxt[s])
+            flo[s] = torch.where(enter, cmin.gather(1, c), flo[s])
+            nxt[s] = torch.where(enter, nxt[s] + 32, nxt[s])
+            live[s] = live[s] & ~(enter & ((emin.gather(1, c) + q) >= lim))
+            take.append(ex & live[s] & ~((flo[s] + q) >= lim))
+        for s, t in enumerate(take):
+            cand = (pad(f[:, :n - k], (k, 0), value=inf) if s == 0
+                    else pad(f[:, k:], (0, k), value=inf)) + q
+            lim = torch.where(t, torch.minimum(lim, cand), lim)
+            count += t.long()
+        steps += ex
+        jump = torch.minimum(torch.where(live[0], nxt[0], big),
+                             torch.where(live[1], nxt[1], big))
+        kt = torch.where(ex, torch.where(take[0] | take[1], k + 1, jump), kt)
+        for s in (0, 1):
+            live[s] = live[s] & ~(ex & (kt > end[s]))
+        k += 1
+    return lim, count, steps
+
+
+def k1_bound_ms(f, masked):
+    """Least time for K1 on the card: HBM bytes, f (and ss, se when
+    masked) read once and d written once, 16 B a voxel masked, 8 B binary.
+    It counts no search: how many candidates a search visits depends on
+    its floors (``k1_search``), and the function needs none but the one
+    that wins."""
+    return bound_ms(f.numel() * (16 if masked else 8), 0)
 
 
 def sfu_exps_per_s():
@@ -727,6 +863,54 @@ def k1_stress_rows(rng):
     return cases
 
 
+def k1_floor_rows(rng):
+    """(name, f, labels, w2) rows that stress K1's floors where background
+    lies far from the targets: a single background voxel at the row's end
+    (the voxel graph's zero tail), zeros exactly at 32-voxel chunk
+    boundaries, a chunk min equal to the targets' limit (ties), wholly
+    INF chunks, f near 3e7 with w2 = 0.7 (neighbouring costs round
+    together), w2 = 1e34 (w2 k^2 overflows), at lengths about every
+    mode's edges: one warp (33, 511, 512), groups of warps (513, 4096),
+    parked targets (4097), the ceiling 58048 and the long-row mode
+    (58049, 65536)."""
+    from edt_tpu_torch.ops import minplus
+
+    cases = []
+    for n in (33, 511, 512, 513, 4096, 4097, minplus.MAX_AXIS,
+              minplus.MAX_AXIS + 1, 65536):
+        rows = 8 if n <= 4097 else 2
+        lab = np.ones((rows, n), np.int32)
+        # the zero tail: flat foreground, one background voxel at the end
+        f = np.full((rows, n), 400.0, np.float32)
+        f += (np.arange(rows, dtype=np.float32) * 37.0)[:, None]
+        tail = lab.copy()
+        tail[:, -1] = 0
+        cases.append((f"n={n} zero tail", f, tail, 0.25))
+        # zeros at chunk boundaries, and a chunk min equal to a limit: f
+        # rises from each zero by w2 k^2, so costs tie
+        b = lab.copy()
+        b[::2, 32::96] = 0
+        b[1::2, 31::96] = 0
+        k = np.arange(n) % 96
+        f = (np.minimum(k, 96 - k) ** 2).astype(np.float32)[None].repeat(rows, 0)
+        cases.append((f"n={n} zeros at chunk edges, ties", f, b, 1.0))
+        # wholly INF chunks between sparse finite heights, a few zeros
+        f = np.full((rows, n), np.inf, np.float32)
+        f[:, 5::160] = rng.random((rows, len(range(5, n, 160)))) * 50
+        z = lab.copy()
+        z[:, rng.integers(0, n, size=3)] = 0
+        cases.append((f"n={n} INF chunks", f, z, 1.69))
+        # near 3e7 and near f32 max, over labels with background
+        ml = np.repeat(rng.integers(0, 4, size=(rows, n // 40 + 1)), 40,
+                       axis=1)[:, :n].astype(np.int32)
+        f = (3e7 + rng.random((rows, n)) * 200).astype(np.float32)
+        cases.append((f"n={n} f near 3e7 w2=0.7", f, ml, 0.7))
+        f = (3e38 * rng.random((rows, n))).astype(np.float32)
+        f[rng.random((rows, n)) < 0.2] = np.inf
+        cases.append((f"n={n} w2=1e34", f, ml, 1e34))
+    return cases
+
+
 def check_k1(exact, name, f, lab, w2, dev):
     """K1 against its plain version, bit-exact, multi-label and binary,
     each with and without black_border; two launches give the same bits.
@@ -791,6 +975,7 @@ def phase_kernel_cases(exact, dev):
     lab[f == 0] = 0
     cases.append(("full-row radius", f, lab, core.f32(core.f32(1.3) ** 2)))
     cases += k1_stress_rows(np.random.default_rng(19))
+    cases += k1_floor_rows(np.random.default_rng(23))
     # rows at the ceiling: random heights over runs of labels, and one
     # source a row, INF elsewhere
     n = minplus.MAX_AXIS
@@ -815,9 +1000,10 @@ def phase_kernel_cases(exact, dev):
         got = minplus.minplus_walls(ft, None, None, w2, False, False)
         exact.check(f"n={m} one source", got, ((idx * idx) * w2).expand(4, m))
     exact.raise_if_failed("kernel vs plain")
-    print(f"kernel vs plain: {n_cases + 2} cases bit-exact up to n={n + 1} "
-          f"(n={n + 1} in the long-row mode), each of the first {n_cases} "
-          "launched twice to the same bits")
+    longest = max(f.shape[1] for _, f, _, _ in cases)
+    print(f"kernel vs plain: {n_cases + 2} cases bit-exact up to "
+          f"n={longest} (past n={n} in the long-row mode), each of the "
+          f"first {n_cases} launched twice to the same bits")
 
 
 def phase_slice_small(exact, dev):
@@ -943,8 +1129,7 @@ def phase_slice_full(exact, kernels, dev):
                     emul)
         del emul
         radius = k1_candidates(f2, ss, se, w2, True, True)
-        k1_rows.append((axis, ms, pms, k1_bound_ms(f2, ss, se, w2, True, True,
-                                                    visited),
+        k1_rows.append((axis, ms, pms, k1_bound_ms(f2, True),
                         visited, radius, steps, warp_steps))
         f = d2.reshape(f.movedim(axis, -1).shape).movedim(-1, axis)
         del f2, ss, se, d2
@@ -969,9 +1154,10 @@ def phase_slice_full(exact, kernels, dev):
     for axis, ms, pms, (bms, by), visited, radius, steps, warp_steps in k1_rows:
         print(f"K1 pass along axis {axis} {(vox // FULL, FULL)}: {ms:.3f} ms, "
               f"plain {pms:.1f} ms, bound {bms:.3f} ms ({by}); "
-              f"{visited / vox:.2f} candidates a voxel visited (the row "
-              f"radius holds {radius / vox:.1f}) in {steps / vox:.2f} steps "
-              f"a target, {warp_steps / vox:.2f} a warp's (its slowest of 32)")
+              f"{visited / vox:.2f} candidates a voxel visited (rows of 512 "
+              f"take the segment floor; the row radius holds "
+              f"{radius / vox:.1f}) in {steps / vox:.2f} steps a target, "
+              f"{warp_steps / vox:.2f} a warp's (its slowest of 32)")
     kernels.append({
         "name": "minplus_walls", "route": "cuda",
         "source": "edt_tpu_torch/csrc/minplus.cu",
@@ -2178,11 +2364,18 @@ def vg_graph(rng, shape):
     return g
 
 
+K1_SAMPLE = 1 << 22  # voxels of a pass that k1_alone_on_passes emulates
+
+
 def k1_alone_on_passes(exact, label, lt, aniso, bb, binary):
     """K1 alone on each parabolic pass of ``compose.edtsq``'s default order
-    (the closed form along axis 2, K1 along axes 1 then 0): ms a pass,
-    bound, candidates a voxel visited and steps a target and a warp's
-    (``k1_search``), each pass bit-exact to the emulation."""
+    (the closed form along axis 2, K1 along axes 1 then 0): each pass
+    bit-exact to the plain version and, on its rows or past ``K1_SAMPLE``
+    voxels on evenly spaced rows, to the emulated search (``k1_search``);
+    ms a pass, the byte bound, and under the row floor K1 takes and the
+    chunk floors it does not (``k1_search(floor="chunk")``), the
+    candidates a voxel visited and the steps a target and a warp's on
+    those rows."""
     from edt_tpu_torch.ops import compose, core, minplus
 
     f = compose._along_last(
@@ -2199,19 +2392,27 @@ def k1_alone_on_passes(exact, label, lt, aniso, bb, binary):
         k1 = lambda: minplus.minplus_walls(f2, ss, se, w2, bb, not binary)  # noqa: E731
         ms, _ = cuda_ms(k1, reps=10)
         d2 = k1()
-        emul, visited, steps, warp_steps = k1_search(f2, ss, se, w2, bb,
-                                                     not binary)
+        exact.check(f"{label} K1 pass axis {axis} vs plain", d2,
+                    minplus.minplus_walls_plain(f2, ss, se, w2, bb,
+                                                not binary))
+        every = max(1, f2.numel() // K1_SAMPLE)
+        x = [None if t is None else t[::every].contiguous()
+             for t in (f2, ss, se)]
+        run = k1_search(*x, w2, bb, not binary)
         exact.check(f"{label} K1 pass axis {axis} vs its emulated search",
-                    d2, emul)
-        del emul
-        bms, by = k1_bound_ms(f2, ss, se, w2, bb, not binary, visited)
-        vox = f2.numel()
+                    d2[::every], run[0])
+        alt = k1_search(*x, w2, bb, not binary, floor="chunk")
+        bms, by = k1_bound_ms(f2, not binary)
+        vox = x[0].numel()
         print(f"{label}: K1 pass along axis {axis} {tuple(f2.shape)}: "
-              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}); {visited / vox:.2f} "
-              f"candidates a voxel visited in {steps / vox:.2f} steps a "
-              f"target, {warp_steps / vox:.2f} a warp's")
+              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}); row floor (chunk "
+              f"floors, not run): {run[1] / vox:.2f} ({alt[1] / vox:.2f}) "
+              f"candidates a voxel visited, {run[2] / vox:.2f} "
+              f"({alt[2] / vox:.2f}) steps a target, {run[3] / vox:.2f} "
+              f"({alt[3] / vox:.2f}) a warp's"
+              + (f" (one row in {every})" if every > 1 else ""))
         f = d2.reshape(f.movedim(axis, -1).shape).movedim(-1, axis)
-        del f2, d2
+        del f2, d2, run, alt, x
 
 
 def phase_voxel_graph(exact, dev):
@@ -2271,6 +2472,55 @@ def phase_voxel_graph(exact, dev):
                                  device=dev), f"{label} (API)")
     exact.raise_if_failed("voxel graph")
     print(f"vg: {S}^3 bit-exact to the host-doubled plain reference")
+
+
+K1_FLOOR_BALL = 240  # binary_edtsq's cell: a solid ball of this radius in FULL^3
+K1_FLOOR_BENCH = 768  # bench.py's volume at 768^3: rows past 512 on one card
+
+
+def phase_k1_floor(exact, dev):
+    """K1 on the rows where its row floor walks far (``k1_alone_on_
+    passes``: each pass bit-exact, its ms, bound and both floors' counts):
+    ``binary_edtsq`` of a FULL^3 solid ball at (1, 1, 1) and ANISO (the
+    scipy drop-in case), bench.py's volume at 768^3 (rows of 768: groups
+    of two warps), and the background pass of its ``sdf`` at FULL^3; then
+    the API's ``binary_edtsq`` on the ball, its K1 launches counted."""
+    import edt_tpu_torch as et
+    from edt_tpu_torch.ops import minplus
+
+    S, r = FULL, K1_FLOOR_BALL
+    i = torch.arange(S, device=dev, dtype=torch.float32) - S // 2
+    ball = ((i[:, None, None] ** 2 + i[None, :, None] ** 2
+             + i[None, None, :] ** 2) < r * r).to(torch.uint8)
+    for aniso in ((1.0, 1.0, 1.0), ANISO):
+        k1_alone_on_passes(exact, f"{S}^3 ball r={r} {aniso}", ball, aniso,
+                           True, True)
+    occ = ball.bool().cpu().numpy()
+    del ball
+    minplus.launches = 0
+    out = et.binary_edtsq(occ, ANISO, True, device=dev)
+    if minplus.launches != 2 or not np.isfinite(out).all():
+        raise AssertionError(f"ball binary_edtsq: K1 launched "
+                             f"{minplus.launches} times or non-finite")
+    api_ms, api_all = cuda_ms(
+        lambda: et.binary_edtsq(occ, ANISO, True, device=dev), reps=3)
+    print(f"{S}^3 ball binary_edtsq (API) {ANISO}: {api_ms:.2f} ms median "
+          f"of {[round(t, 2) for t in api_all]}, K1 launches 2")
+    del occ, out
+    labels = make_labels(np.random.default_rng(42), S)
+    lt = torch.from_numpy(labels.view(np.int32)).to(dev)
+    k1_alone_on_passes(exact, f"{S}^3 sdf background", (lt == 0).to(
+        torch.uint8), ANISO, True, True)
+    del labels, lt
+    B = K1_FLOOR_BENCH
+    lt = torch.from_numpy(make_labels(np.random.default_rng(42), B)
+                          .view(np.int32)).to(dev)
+    k1_alone_on_passes(exact, f"{B}^3 bench volume", lt, ANISO, True, False)
+    del lt
+    torch.cuda.empty_cache()
+    exact.raise_if_failed("k1_floor")
+    print("k1_floor: every pass bit-exact to the plain version and to the "
+          "emulated search")
 
 
 def snemi_labels(rng):
@@ -2724,7 +2974,6 @@ def long_kernel_cases(exact, close3, close5, close6, dev):
         # times and bounds at (LONG_ROWS, 65536)
         vox = R * n
         walls = argmin.walls_from_counts(cnt, w2)
-        _, k1_cands, _, _ = k1_search(ft, ss, se, w2, True, True)
         k2_cands, _, _ = k2_search_work(ft, walls, w2)
         live = o2 != sent
         idx = torch.arange(n, device=dev)
@@ -2734,7 +2983,7 @@ def long_kernel_cases(exact, close3, close5, close6, dev):
         for name, fn, plain, bnd, lib in (
                 ("K1", k1, lambda: minplus.minplus_walls_plain(
                     ft, ss, se, w2, True, True),
-                 bound_ms(16 * vox, 4 * k1_cands), None),
+                 k1_bound_ms(ft, True), None),
                 ("K2", k2, lambda: argmin.minplus_argmin_plain(ft, w2, cnt, True),
                  bound_ms(16 * vox, 4 * k2_cands), None),
                 ("K3", k3, lambda: grad.minplus_grad_plain(
@@ -3317,8 +3566,7 @@ def shard_kernel_entry(k, call, exps_per_s):
     lib = None
     f = x.get("f", x.get("g"))
     if k == "K1":
-        visited = k1_search(*x.values())[1]
-        bms, by = k1_bound_ms(*x.values(), visited)
+        bms, by = k1_bound_ms(f, x["masked"])
     elif k == "K2":
         walls = (None if x["walls"] is None
                  else argmin.walls_from_counts(x["walls"], x["w2"]))
@@ -4358,6 +4606,8 @@ def main(only=()) -> int:
                lambda: phase_distance_net(close_train, close5, close6, dev)),
               ("UNet3D trainer", lambda: phase_unet3d(close_train, dev)),
               ("vg: voxel graph", lambda: phase_voxel_graph(exact, dev)),
+              ("k1_floor: K1's floors on the ball, 768^3 and sdf "
+               "passes", lambda: phase_k1_floor(Exact(), dev)),
               ("each: per-label extraction", lambda: phase_each(exact, dev)),
               ("export: 512^3 forward", lambda: phase_export(exact, dev)),
               ("long: rows past the ceilings",
