@@ -79,11 +79,15 @@ paths:
   threads and one card after another, a staged split (upload, passes,
   rotations, gather) and each card's profile (copies, kernels, idle
   share). With one card, the 768^3 call stays on it (counter 0);
-- K1 where its row floor walks far (phase ``k1_floor``): K1 alone on the
-  passes of ``binary_edtsq`` of a 512^3 ball at (1, 1, 1) and (6, 6, 30),
-  of bench.py's volume at 768^3 and of its ``sdf``'s background, each
-  pass bit-exact, with the candidates a voxel that its row floor and
-  that 32-voxel chunk floors (``k1_search(floor="chunk")``) visit.
+- K1 where its floor decides the walk (phase ``k1_floor``): K1 alone on
+  the passes of ``binary_edtsq`` of a 512^3 ball at (1, 1, 1) and (6, 6,
+  30), of bench.py's ``sdf``'s background, of bench.py's volume at 768^3
+  and of a 1024 x 1024 x 128 chunk of its labels in 32-voxel blocks, each
+  pass bit-exact, with the candidates a voxel and warp steps under two
+  floors (binary: the row floor and 32-voxel chunk floors,
+  ``k1_search(floor="chunk")``; masked: the row and the segment floor)
+  and, on the masked passes, the time of the same rows with f = 0 (no
+  search); ``compose.edtsq`` at 768^3 on a device tensor, timed.
 
 Each path runs with the launch counts set to 0 just before it and checked
 just after. Times come from CUDA events. Prints one JSON line with the
@@ -122,8 +126,12 @@ UNET_SMALL = 64  # UNet3D's KERNELS-vs-PLAIN step
 
 def make_labels(rng, size):
     """bench.py's volume: 16^3 blocks of labels 0..5, each size/16 wide."""
-    blk = max(1, size // 16)
-    base = rng.integers(0, 6, size=(size // blk,) * 3)
+    return block_labels(rng, (size,) * 3, max(1, size // 16))
+
+
+def block_labels(rng, shape, blk=32):
+    """Labels 0..5 in blk^3 blocks (bench.py's volume at another shape)."""
+    base = rng.integers(0, 6, size=tuple(s // blk for s in shape))
     return np.kron(base, np.ones((blk,) * 3, dtype=np.uint8)).astype(np.uint32)
 
 
@@ -376,7 +384,7 @@ def k1_chunk_floors(f):
             cmin.flip(1).cummin(dim=1).values.flip(1))
 
 
-def k1_search(f, ss, se, w2, black_border, masked, floor="row",
+def k1_search(f, ss, se, w2, black_border, masked, floor="kernel",
               by_row=False):
     """K1's outward search emulated in torch with the kernel's roundings:
     (d, candidates, steps, warp steps) on these inputs; candidates count
@@ -389,13 +397,16 @@ def k1_search(f, ss, se, w2, black_border, masked, floor="row",
     the row radius, each lowering lim to min(lim, f_j + w2 k^2), both
     sides tested with the lim held before step k; d is the final lim. It
     stops taking a side's candidates once a floor below all of them plus
-    w2 k^2 exceeds lim (row floor) or reaches it (chunk floors):
+    w2 k^2 exceeds lim (row and segment floors) or reaches it (chunk
+    floors):
 
-    - ``floor="row"``, the kernel's: both sides stop together once lb +
-      w2 k^2 > lim, lb the row's min f (the segment's on masked rows up
-      to 512, which one warp holds).
+    - ``floor="kernel"``, what K1 runs: ``"segment"`` where
+      ``minplus.segment_floor`` says so, else ``"row"``.
+    - ``floor="row"``: both sides stop together once lb + w2 k^2 > lim,
+      lb the row's min f; ``floor="segment"``: lb the min f of the
+      target's segment (binary rows are one segment: the row's).
     - ``floor="chunk"``, a search the kernel does not run, emulated to
-      count what it would visit: masked rows as above. On binary rows a
+      count what it would visit: masked rows as the kernel. On binary rows a
       warp (32 adjacent targets, one chunk of 32 voxels) votes: where
       each of its targets' f is its chunk's min f (cmin of
       ``k1_chunk_floors``), as on flat heights, and one would walk past
@@ -409,10 +420,10 @@ def k1_search(f, ss, se, w2, black_border, masked, floor="row",
 
     A step is one k of a target (both sides); a warp runs as many steps
     as its slowest target. The kernel's values are these, bit for bit."""
-    from edt_tpu_torch.ops import core
+    from edt_tpu_torch.ops import core, minplus
 
     R, n = f.shape
-    if floor not in ("chunk", "row"):
+    if floor not in ("chunk", "kernel", "row", "segment"):
         raise ValueError(f"floor: {floor!r}")
     w2t = torch.tensor(core.f32(w2), dtype=torch.float32, device=f.device)
     wall = k1_walls(f, ss, se, w2, black_border, masked)
@@ -421,7 +432,9 @@ def k1_search(f, ss, se, w2, black_border, masked, floor="row",
     r = row_radii(f, torch.minimum(f, wall), w2)
     lim = torch.minimum(f + w2t * 0.0, wall)
     lb = f.amin(dim=1, keepdim=True)
-    if masked and n <= 512:  # segment mins, gathered at each segment start
+    if masked and (floor == "segment" or floor != "row"
+                   and minplus.segment_floor(n, masked)):
+        # segment mins, gathered at each segment start
         lb = torch.full_like(f, float("inf")).scatter_reduce(
             1, ss.long(), f, "amin").gather(1, ss.long())
     d, count, steps = _k1_row_search(f, w2t, lb, r, kl, kr, wall, lim)
@@ -816,7 +829,8 @@ def phase_build():
           f"({', '.join(report) or 'cached'})")
     for name, r in report.items():
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "entry function")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -911,6 +925,82 @@ def k1_floor_rows(rng):
     return cases
 
 
+def k1_segment_rows(rng):
+    """(name, f, labels, w2) rows that stress the segment floor of masked
+    rows held by a group of several warps, each warp a span of contiguous
+    32-voxel chunks: segments that cross a chunk edge (from lane 31 to
+    lane 0, and 64 voxels from lane 31) and span edges, one segment over
+    the whole row and one over all of it but a voxel, one-voxel segments
+    at every chunk edge, wholly INF segments across chunks, a segment over
+    half the row whose min lies in another warp's span than most of its
+    targets, f near 3e7 with w2 = 0.7 and w2 = 1e34 over runs across chunk
+    edges; background elsewhere in the row, so that the row's floor is 0.
+    Lengths about every edge:
+    groups of warps (513 to 4096), parked targets (4097), the floor's
+    limit ``minplus.SEGMENT_FLOOR_AXIS`` +- 1, the ceiling 58048 and the
+    long-row mode (58049, 65536)."""
+    from edt_tpu_torch.ops import minplus
+
+    lim = minplus.SEGMENT_FLOOR_AXIS
+    cases = []
+    for n in (513, 544, 768, 1024, 2049, 4096, 4097, lim - 1, lim, lim + 1,
+              minplus.MAX_AXIS, minplus.MAX_AXIS + 1, 65536):
+        rows = 4 if n <= 4097 else 2
+        i = np.arange(n)
+        heights = lambda: (rng.random((rows, n)) * 900).astype(np.float32)  # noqa: E731
+        # segments of 64 from lane 31 (over three chunks), two-voxel ones
+        # from lane 31 to lane 0, and background
+        lab = 1 + ((i - 31) // 64) % 3
+        lab[(i % 256 == 95) | (i % 256 == 96)] = 7
+        lab = np.repeat(lab[None], rows, 0)
+        lab[:, 10:14] = 0
+        lab[:, 31 + 64 * 9:95 + 64 * 9] = 0
+        cases.append((f"n={n} segments across chunk edges", heights(),
+                      lab.astype(np.int32), 2.25))
+        # one segment over the row; over all of it but one voxel
+        f = heights()
+        f[1] = 1e4
+        f[1, n // 3] = 3.0  # one low voxel, far from most targets
+        cases.append((f"n={n} one segment", f, np.ones((rows, n), np.int32),
+                      1.0))
+        lab = np.ones((rows, n), np.int32)
+        lab[np.arange(rows), [0, n - 1, n // 2, 31][:rows]] = 0
+        cases.append((f"n={n} one segment but a voxel", heights(), lab, 1.0))
+        # one-voxel segments at every chunk edge
+        lab = np.where(i % 32 == 0, 2, np.where(i % 32 == 31, 3, 1))
+        lab = np.repeat(lab[None], rows, 0).astype(np.int32)
+        lab[:, 100:140] = 0
+        cases.append((f"n={n} one-voxel segments at chunk edges", heights(),
+                      lab, 36.0))
+        # wholly INF segments across chunks (runs of 100 from voxel 20)
+        run = (i + 80) // 100
+        lab = np.repeat((1 + run % 4)[None], rows, 0).astype(np.int32)
+        f = heights()
+        f[:, run % 2 == 1] = np.inf
+        lab[:, :5] = 0
+        cases.append((f"n={n} INF segments across warps", f, lab, 1.69))
+        # a segment over half the row from n / 8, across span edges, whose
+        # min is at its far end; background after it
+        a, b = n // 8, n // 8 + n // 2
+        lab = np.full((rows, n), 2, np.int32)
+        lab[:, a:b] = 1
+        lab[:, b + 5:b + 10] = 0
+        f = np.full((rows, n), 5e4, np.float32)
+        f[:, b - 1] = 7.0
+        f[1, a] = 2.0  # and at its near end
+        cases.append((f"n={n} segment min in another warp", f, lab, 1.0))
+        # f near 3e7 at w2 = 0.7 and near f32 max at w2 = 1e34, over runs
+        # of 45 (across chunk edges) with background
+        ml = np.repeat(rng.integers(0, 4, size=(rows, n // 45 + 1)), 45,
+                       axis=1)[:, :n].astype(np.int32)
+        f = (3e7 + rng.random((rows, n)) * 200).astype(np.float32)
+        cases.append((f"n={n} f near 3e7 w2=0.7", f, ml, 0.7))
+        f = (3e38 * rng.random((rows, n))).astype(np.float32)
+        f[rng.random((rows, n)) < 0.2] = np.inf
+        cases.append((f"n={n} w2=1e34", f, ml, 1e34))
+    return cases
+
+
 def check_k1(exact, name, f, lab, w2, dev):
     """K1 against its plain version, bit-exact, multi-label and binary,
     each with and without black_border; two launches give the same bits.
@@ -976,6 +1066,7 @@ def phase_kernel_cases(exact, dev):
     cases.append(("full-row radius", f, lab, core.f32(core.f32(1.3) ** 2)))
     cases += k1_stress_rows(np.random.default_rng(19))
     cases += k1_floor_rows(np.random.default_rng(23))
+    cases += k1_segment_rows(np.random.default_rng(29))
     # rows at the ceiling: random heights over runs of labels, and one
     # source a row, INF elsewhere
     n = minplus.MAX_AXIS
@@ -2372,10 +2463,13 @@ def k1_alone_on_passes(exact, label, lt, aniso, bb, binary):
     (the closed form along axis 2, K1 along axes 1 then 0): each pass
     bit-exact to the plain version and, on its rows or past ``K1_SAMPLE``
     voxels on evenly spaced rows, to the emulated search (``k1_search``);
-    ms a pass, the byte bound, and under the row floor K1 takes and the
-    chunk floors it does not (``k1_search(floor="chunk")``), the
-    candidates a voxel visited and the steps a target and a warp's on
-    those rows."""
+    ms a pass (median and range of 10), the byte bound, the floor the
+    kernel takes, and the candidates a voxel visited and the steps a
+    target and a warp's on those rows under two floors: binary, the row
+    floor K1 takes and the chunk floors it does not
+    (``k1_search(floor="chunk")``); masked, the row floor and the segment
+    floor, and the ms of the same rows and labels with f = 0 (every
+    target stops at k = 1: the pass with no search)."""
     from edt_tpu_torch.ops import compose, core, minplus
 
     f = compose._along_last(
@@ -2390,7 +2484,7 @@ def k1_alone_on_passes(exact, label, lt, aniso, bb, binary):
         w = core.f32(aniso[axis])
         w2 = core.f32(w * w)
         k1 = lambda: minplus.minplus_walls(f2, ss, se, w2, bb, not binary)  # noqa: E731
-        ms, _ = cuda_ms(k1, reps=10)
+        ms, runs = cuda_ms(k1, reps=10)
         d2 = k1()
         exact.check(f"{label} K1 pass axis {axis} vs plain", d2,
                     minplus.minplus_walls_plain(f2, ss, se, w2, bb,
@@ -2398,21 +2492,34 @@ def k1_alone_on_passes(exact, label, lt, aniso, bb, binary):
         every = max(1, f2.numel() // K1_SAMPLE)
         x = [None if t is None else t[::every].contiguous()
              for t in (f2, ss, se)]
-        run = k1_search(*x, w2, bb, not binary)
-        exact.check(f"{label} K1 pass axis {axis} vs its emulated search",
-                    d2[::every], run[0])
-        alt = k1_search(*x, w2, bb, not binary, floor="chunk")
+        floors = ("row", "chunk") if binary else ("row", "segment")
+        emul = [k1_search(*x, w2, bb, not binary, floor=fl) for fl in floors]
+        for fl, run in zip(floors, emul):
+            exact.check(f"{label} K1 pass axis {axis} vs its emulated search "
+                        f"({fl} floor)", d2[::every], run[0])
+        took = ("segment" if minplus.segment_floor(n, not binary) else "row")
+        extra = ""
+        if not binary:  # the same rows and labels with no search
+            z = torch.zeros_like(f2)
+            zms, zruns = cuda_ms(
+                lambda: minplus.minplus_walls(z, ss, se, w2, bb, True), reps=10)
+            extra = (f"; f = 0 (no search) {zms:.3f} ms "
+                     f"[{min(zruns):.3f}-{max(zruns):.3f}]")
+            del z
         bms, by = k1_bound_ms(f2, not binary)
         vox = x[0].numel()
+        (a, b) = emul
         print(f"{label}: K1 pass along axis {axis} {tuple(f2.shape)}: "
-              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}); row floor (chunk "
-              f"floors, not run): {run[1] / vox:.2f} ({alt[1] / vox:.2f}) "
-              f"candidates a voxel visited, {run[2] / vox:.2f} "
-              f"({alt[2] / vox:.2f}) steps a target, {run[3] / vox:.2f} "
-              f"({alt[3] / vox:.2f}) a warp's"
+              f"{ms:.3f} ms [{min(runs):.3f}-{max(runs):.3f}], bound "
+              f"{bms:.3f} ms ({by}){extra}; the kernel takes the {took} "
+              f"floor; {floors[0]} ({floors[1]}) floor: {a[1] / vox:.2f} "
+              f"({b[1] / vox:.2f}) candidates a voxel visited, "
+              f"{a[2] / vox:.2f} ({b[2] / vox:.2f}) steps a target, "
+              f"{a[3] / vox:.2f} ({b[3] / vox:.2f}) a warp's"
               + (f" (one row in {every})" if every > 1 else ""))
         f = d2.reshape(f.movedim(axis, -1).shape).movedim(-1, axis)
-        del f2, d2, run, alt, x
+        del f2, d2, emul, x, ss, se
+    return f
 
 
 def phase_voxel_graph(exact, dev):
@@ -2476,17 +2583,22 @@ def phase_voxel_graph(exact, dev):
 
 K1_FLOOR_BALL = 240  # binary_edtsq's cell: a solid ball of this radius in FULL^3
 K1_FLOOR_BENCH = 768  # bench.py's volume at 768^3: rows past 512 on one card
+K1_FLOOR_CHUNK = (1024, 1024, 128)  # a connectomics task chunk: rows of 1024
 
 
 def phase_k1_floor(exact, dev):
-    """K1 on the rows where its row floor walks far (``k1_alone_on_
+    """K1 on the rows where its floor decides the walk (``k1_alone_on_
     passes``: each pass bit-exact, its ms, bound and both floors' counts):
     ``binary_edtsq`` of a FULL^3 solid ball at (1, 1, 1) and ANISO (the
-    scipy drop-in case), bench.py's volume at 768^3 (rows of 768: groups
-    of two warps), and the background pass of its ``sdf`` at FULL^3; then
-    the API's ``binary_edtsq`` on the ball, its K1 launches counted."""
+    scipy drop-in case), the background pass of bench.py's ``sdf`` at
+    FULL^3, bench.py's volume at 768^3 (rows of 768: groups of two warps)
+    and a 1024 x 1024 x 128 chunk of its labels in 32-voxel blocks (rows
+    of 1024), both masked with the f = 0 yardstick; the API's
+    ``binary_edtsq`` on the ball and ``compose.edtsq`` on the 768^3 device
+    tensor, timed, their K1 launches counted, the latter bit-exact to the
+    passes checked one by one."""
     import edt_tpu_torch as et
-    from edt_tpu_torch.ops import minplus
+    from edt_tpu_torch.ops import compose, minplus
 
     S, r = FULL, K1_FLOOR_BALL
     i = torch.arange(S, device=dev, dtype=torch.float32) - S // 2
@@ -2515,7 +2627,26 @@ def phase_k1_floor(exact, dev):
     B = K1_FLOOR_BENCH
     lt = torch.from_numpy(make_labels(np.random.default_rng(42), B)
                           .view(np.int32)).to(dev)
-    k1_alone_on_passes(exact, f"{B}^3 bench volume", lt, ANISO, True, False)
+    ref = k1_alone_on_passes(exact, f"{B}^3 bench volume", lt, ANISO, True,
+                             False)
+    minplus.launches = 0
+    out = compose.edtsq(lt, ANISO, True)
+    if minplus.launches != 2:
+        raise AssertionError(f"{B}^3 compose.edtsq: K1 launched "
+                             f"{minplus.launches} times, expected 2")
+    exact.check(f"{B}^3 compose.edtsq vs its passes", out, ref)
+    del out, ref
+    dms, druns = cuda_ms(lambda: compose.edtsq(lt, ANISO, True), reps=5)
+    print(f"{B}^3 bench volume, compose.edtsq on a device tensor: "
+          f"{dms:.2f} ms median of {[round(t, 2) for t in druns]}, K1 "
+          f"launches 2")
+    del lt
+    torch.cuda.empty_cache()
+    shape = K1_FLOOR_CHUNK
+    lt = torch.from_numpy(block_labels(np.random.default_rng(42), shape)
+                          .view(np.int32)).to(dev)
+    k1_alone_on_passes(exact, "x".join(map(str, shape)) + " chunk, 32-voxel "
+                       "blocks", lt, ANISO, True, False)
     del lt
     torch.cuda.empty_cache()
     exact.raise_if_failed("k1_floor")
@@ -4606,7 +4737,7 @@ def main(only=()) -> int:
                lambda: phase_distance_net(close_train, close5, close6, dev)),
               ("UNet3D trainer", lambda: phase_unet3d(close_train, dev)),
               ("vg: voxel graph", lambda: phase_voxel_graph(exact, dev)),
-              ("k1_floor: K1's floors on the ball, 768^3 and sdf "
+              ("k1_floor: K1's floors on the ball, sdf, 768^3 and chunk "
                "passes", lambda: phase_k1_floor(Exact(), dev)),
               ("each: per-label extraction", lambda: phase_each(exact, dev)),
               ("export: 512^3 forward", lambda: phase_export(exact, dev)),

@@ -11,7 +11,10 @@ version only for CPU tensors. ``launches`` counts the kernel launches,
 on each card (by device index). Every launch runs on its tensor's card,
 whichever card is current. Rows up to ``MAX_AXIS`` run
 the kernel's shared-memory mode, longer ones its long-row mode (the row
-read from device memory), so every length runs on the card.
+read from device memory), so every length runs on the card. Each
+target's search stops under a floor: its segment's min f on masked rows
+up to ``SEGMENT_FLOOR_AXIS``, the row's min f elsewhere
+(``segment_floor``).
 
 The same pair is registered as the ``torch.library`` custom op
 ``edt_tpu_torch::minplus_walls`` (``minplus_walls`` on every device, with a
@@ -34,6 +37,22 @@ from edt_tpu_torch.ops import _build, core
 # kernel's few static bytes. Longer rows take its long-row mode.
 MAX_SMEM_BYTES = 232448
 MAX_AXIS = (MAX_SMEM_BYTES - 256) // 4
+
+
+# Masked rows up to this length keep their segments' running minima of f
+# beside f in shared memory (8 B a voxel): each target's segment min f is
+# the floor of its search.
+SEGMENT_FLOOR_AXIS = (MAX_SMEM_BYTES - 256) // 8
+
+
+def segment_floor(n, masked):
+    """Whether K1 searches a row of n voxels under each target's segment
+    min f, else under the row's min f: masked rows up to
+    ``SEGMENT_FLOOR_AXIS``. Longer masked rows (and rows forced into the
+    long-row mode) keep the row's floor; binary rows are one segment,
+    whose min f is the row's."""
+    return masked and n <= SEGMENT_FLOOR_AXIS
+
 
 # The plain versions' (rows, targets, n) cost tensors stay below this.
 PLAIN_COST_BYTES = 1 << 30
