@@ -16,17 +16,27 @@ import torch
 from edt_tpu_torch.ops import core, minplus
 
 
+def use_pallas_default():
+    """Whether the kernels are the default backend: a CUDA device is
+    available. The JAX package's function of this name also returns False
+    while ``EDT_TPU_DISABLE_PALLAS`` is set; the port reads no such
+    variable, so that one inherited from a JAX run on the CPU never sends
+    the card to the plain versions. A plain run is asked for explicitly:
+    ``kernels=soft.PLAIN``, or a ``parabolic_fn``/``minplus_fn`` here."""
+    return torch.cuda.is_available()
+
+
 def default_minplus_fn(use_pallas=None):
     """The min-plus backend with the JAX package's contract, (f2d,
     start2d, end2d, w2, masked) -> d2d, walls applied by the caller
     (``core.parabolic_pass_sq``): K1 (through its custom op) when
-    ``use_pallas``, default True when CUDA is available; None, the plain
+    ``use_pallas``, default ``use_pallas_default()``; None, the plain
     path, otherwise. The name is the JAX package's: its Pallas kernel is
     K1 here. K1 fuses the walls of a row's interior segment bounds
     (black_border=False); the caller's walls, a min with the same
     parabolas, leave the values unchanged."""
     if use_pallas is None:
-        use_pallas = torch.cuda.is_available()
+        use_pallas = use_pallas_default()
     if not use_pallas:
         return None
 
@@ -40,10 +50,10 @@ def default_minplus_fn(use_pallas=None):
 
 def default_parabolic_fn(use_pallas=None):
     """The whole parabolic pass on K1 (``minplus.make_parabolic_fn()``)
-    when ``use_pallas``, default True when CUDA is available; None, the
+    when ``use_pallas``, default ``use_pallas_default()``; None, the
     plain path, otherwise."""
     if use_pallas is None:
-        use_pallas = torch.cuda.is_available()
+        use_pallas = use_pallas_default()
     return minplus.make_parabolic_fn() if use_pallas else None
 
 

@@ -160,6 +160,104 @@ def test_default_minplus_and_parabolic_fn():
                                True).numpy(), np.asarray(ref))
 
 
+KNOB = "EDT_TPU_DISABLE_PALLAS"
+
+
+def _set_knob(monkeypatch, name, value):
+    if value is None:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, value)
+
+
+def _count_k1(monkeypatch):
+    """Calls of K1's wrapper, which its custom op (the kernel-backed
+    pass) calls by its module name; the plain pass never does."""
+    from edt_tpu_torch.ops import minplus
+
+    calls = []
+    real = minplus.minplus_walls
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(minplus, "minplus_walls", counted)
+    return calls
+
+
+def test_use_pallas_default_is_the_card(monkeypatch):
+    """``compose.use_pallas_default()`` is "a card", read at each call, and
+    ``default_minplus_fn(None)``/``default_parabolic_fn(None)`` follow it.
+    EDT_TPU_DISABLE_PALLAS (unset, empty, "1", "0") changes neither it nor
+    the API's device ceiling (58048 on a card, 128 on the CPU), though the
+    JAX package's ``use_pallas_default`` is False while it is set: the
+    port reads no variable that would send the card to the plain
+    versions."""
+    from edt_tpu.ops import compose as jcompose
+    from edt_tpu_torch import api
+    from edt_tpu_torch.ops import compose
+
+    for card in (True, False):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: card)  # noqa: B023
+        for knob in (None, "", "1", "0"):
+            _set_knob(monkeypatch, KNOB, knob)
+            assert compose.use_pallas_default() is card
+            if knob:
+                assert jcompose.use_pallas_default() is False
+            for fn in (compose.default_minplus_fn,
+                       compose.default_parabolic_fn):
+                assert (fn() is None) is (not card)
+            assert api._device_max_axis(torch.device("cpu")) == 128
+            assert api._device_max_axis(torch.device("cuda")) == 58048
+
+
+def test_api_keeps_k1_under_disable_pallas(monkeypatch):
+    """With a card (patched) and ``device="cpu"``, the API's single-device
+    transform and voxel graph run K1's pass whether EDT_TPU_DISABLE_PALLAS
+    is set or not, bit-equal to the JAX API, which runs its plain path
+    under the knob. Without a card and without ``device=`` the call
+    raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    k1 = _count_k1(monkeypatch)
+    data = _labels((12, 13, 14), seed=11)
+    graph = np.random.default_rng(12).integers(0, 64, data.shape).astype(
+        np.uint8)
+    an = (6.0, 6.0, 30.0)
+    for knob in ("1", None):
+        _set_knob(monkeypatch, KNOB, knob)
+        for kw in ({}, {"voxel_graph": graph}):
+            k1.clear()
+            got = edt_tpu_torch.edtsq(data, an, True, device="cpu", **kw)
+            assert len(k1) > 0, (knob, kw.keys())
+            assert_same(got, edt_tpu.edtsq(data, an, True, **kw))
+    monkeypatch.setenv(KNOB, "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        edt_tpu_torch.edtsq(data)
+
+
+def test_auto_shard_keeps_k1_under_the_knob(monkeypatch):
+    """The API's auto-shard path keeps its kernels under
+    EDT_TPU_DISABLE_PALLAS, as the JAX package's ``edtsq_sharded_auto``
+    does: K1's pass on every slab (four ``cpu`` slabs here), bit-equal to
+    one device."""
+    from edt_tpu_torch import api
+
+    data = _labels((16, 12, 8), seed=13)
+    want = edt_tpu_torch.edtsq(data, (4.0, 1.0, 2.0), True, device="cpu")
+    monkeypatch.setenv(KNOB, "1")
+    monkeypatch.setenv("EDT_TPU_SHARD_MIN_VOXELS", "1")
+    monkeypatch.setattr(api, "_shard_devices",
+                        lambda device: [torch.device("cpu")] * 4)
+    k1 = _count_k1(monkeypatch)
+    before = counters.sharded_dispatches
+    got = edt_tpu_torch.edtsq(data, (4.0, 1.0, 2.0), True, device="cpu")
+    assert counters.sharded_dispatches == before + 1
+    assert len(k1) > 0
+    assert_same(got, want)
+
+
 def test_import_hygiene():
     """edt_tpu_torch imports neither jax nor anything of edt_tpu: every
     module of the package, found by walking it, imported in a fresh

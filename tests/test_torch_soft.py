@@ -296,3 +296,200 @@ def test_positional_arguments_bind_as_in_jax():
             tfn(torch.from_numpy(x), *args[:k - 1], "x")
         with pytest.raises(TypeError, match="ProcessGroup"):
             tfn(torch.from_numpy(x), *args[:2], axis_name="x")
+
+
+# ---------------- the JAX package's path knobs ----------------
+#
+# Under EDT_TPU_DISABLE_PALLAS the JAX package's passes take jnp, and under
+# EDT_TPU_BINARY_GRAD_SCAN=0 its closed-form binary pass's backward takes
+# the gather (K3) instead of the segmented scan (K4). The port reads
+# neither: its passes keep their kernels and their one backward, and their
+# results equal the JAX package's under either setting.
+
+KNOB = "EDT_TPU_DISABLE_PALLAS"
+SCAN_KNOB = "EDT_TPU_BINARY_GRAD_SCAN"
+BENCH_ANISO = (6.0, 6.0, 30.0)
+N16 = 16
+
+
+def _count_wrappers(monkeypatch):
+    """Names of the kernels' wrappers as they are called. The custom ops
+    of ``soft.KERNELS`` call them by their module names; ``soft.PLAIN``
+    calls the plain versions and never them."""
+    from edt_tpu_torch.ops import argmin, grad
+    from edt_tpu_torch.ops import softmin as soft_ops
+
+    calls = []
+    for mod, name in ((argmin, "minplus_argmin"), (grad, "minplus_grad"),
+                      (grad, "binary_grad_scan"), (soft_ops, "softmin"),
+                      (soft_ops, "softmin_grad")):
+        def counted(*a, _real=getattr(mod, name), _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+def _bench_inputs():
+    """bench.py's make_labels at 16^3 (blocks of one voxel, labels 0..5),
+    its mask occupancy and a cotangent."""
+    rng = np.random.default_rng(42)
+    labels = rng.integers(0, 6, size=(N16,) * 3).astype(np.uint32)
+    occ = (labels != 0).astype(np.float32)
+    return labels, occ, rng.random(labels.shape).astype(np.float32)
+
+
+def _jax_bench(labels, occ, w):
+    return _jax_value_and_grad(
+        lambda o: jsoft.multilabel_edtsq(jnp.asarray(labels), o, BENCH_ANISO,
+                                         True, binary_occupancy=True), occ, w)
+
+
+def _port_bench(labels, occ, w):
+    return _port_value_and_grad(
+        lambda o: soft.multilabel_edtsq(labels, o, BENCH_ANISO, True,
+                                        binary_occupancy=True), occ, w)
+
+
+@pytest.fixture(scope="module")
+def jax_bench():
+    """The JAX package's bench-flag fwd+bwd at 16^3 under each value of
+    EDT_TPU_BINARY_GRAD_SCAN, one jitted call each."""
+    labels, occ, w = _bench_inputs()
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for scan in ("1", "0"):
+            mp.setenv(SCAN_KNOB, scan)
+            out[scan] = _jax_bench(labels, occ, w)
+    return out
+
+
+def test_default_kernels_ignore_disable_pallas(monkeypatch, jax_bench):
+    """With a card (patched), every pass with no kernels= runs the
+    kernels' wrappers (K2 to K6) whether EDT_TPU_DISABLE_PALLAS is set or
+    not, in the transforms and both trainers; the bench-flag
+    multilabel_edtsq equals the JAX package's. ``kernels=soft.PLAIN`` is
+    the one way to the plain versions."""
+    from edt_tpu_torch.models import distance_net, unet3d
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls = _count_wrappers(monkeypatch)
+    labels, occ, w = _bench_inputs()
+    small = torch.from_numpy(occ[:6, :7, :8].copy()).requires_grad_()
+    net = distance_net.DistanceFieldNet(2, 4)
+    unet = unet3d.UNet3D(2, 2, 1)
+    feats = torch.from_numpy(np.random.default_rng(3).random(
+        (1, 4, 4, 4, 2)).astype(np.float32))
+    t0 = {"minplus_argmin", "minplus_grad", "binary_grad_scan"}
+    t_soft = {"softmin", "softmin_grad"}
+    cases = {
+        "multilabel_edtsq": (lambda: _port_bench(labels, occ, w), t0),
+        "soft_edtsq t=0.3": (lambda: soft.soft_edtsq(
+            small, (1.0, 2.0, 3.0), temperature=0.3).sum().backward(),
+            t_soft),
+        "soft_sdfsq": (lambda: soft.soft_sdfsq(small, (1.0, 1.0, 1.0)),
+                       {"minplus_argmin"}),
+        "DistanceFieldNet": (lambda: distance_net.loss_fn(
+            net, feats, torch.zeros(1, 4, 4, 4)).backward(), t_soft),
+        "UNet3D": (lambda: unet3d.loss_fn(
+            unet, feats, torch.zeros(1, 4, 4, 4)).backward(), t_soft),
+    }
+    for knob in ("1", None):
+        if knob is None:
+            monkeypatch.delenv(KNOB)
+        else:
+            monkeypatch.setenv(KNOB, knob)
+        for case, (call, want) in cases.items():
+            calls.clear()
+            got = call()
+            assert want <= set(calls), (knob, case, calls)
+            if case == "multilabel_edtsq":
+                _check(got, jax_bench["1"])
+    calls.clear()
+    soft.multilabel_edtsq(labels, torch.from_numpy(occ), BENCH_ANISO, True,
+                          kernels=soft.PLAIN)
+    assert calls == []
+
+
+def _binary_rows(rng, n=96, B=400.0):
+    """The rows of the JAX package's test_binary_scan_grad_matches_gather:
+    random two-valued heights, all solid, all zero, zeros only at the
+    ends, adjacent zeros."""
+    f = (rng.random((8, n)) > 0.4).astype(np.float32) * B
+    f[3] = B
+    f[4] = 0.0
+    f[5, 0] = f[5, -1] = 0.0
+    f[5, 1:-1] = B
+    f[6, 10:14] = 0.0
+    return f
+
+
+@pytest.mark.parametrize("walled", [False, True], ids=["plain", "walled"])
+def test_binary_grad_matches_jax_under_either_scan_knob(monkeypatch, walled):
+    """The closed-form binary pass (plain and walled) on the JAX package's
+    test rows: under EDT_TPU_BINARY_GRAD_SCAN "0" (JAX's gather on the
+    links) and "1" (JAX's scan), the port's backward is K4's scan and
+    never K3's gather, its forward bit-equal to JAX's and its gradient
+    within rtol=1e-5, atol=1e-5 of it, the same bits under both."""
+    from edt_tpu_torch.ops import core
+
+    calls = _count_wrappers(monkeypatch)
+    rng = np.random.default_rng(7)
+    n = 96
+    f = _binary_rows(rng, n)
+    cot = rng.standard_normal((8, n)).astype(np.float32)
+    if walled:
+        base = rng.integers(0, 4, size=(8, n // 8))
+        lab = np.kron(base, np.ones((1, 8), np.int64)).astype(np.uint32)
+        occ = (lab != 0).astype(np.float32)
+        occ[rng.random((8, n)) > 0.7] = 0.0  # occupancy holes: zero sites
+        f = occ * np.float32(400.0)
+        cnt_j = jsoft._wall_counts(jnp.asarray(lab), 1, True)
+        cnt_t = soft._wall_counts(torch.from_numpy(lab.view(np.int32)), 1,
+                                  True)
+
+        def jfn(ff):
+            return jsoft._multilabel_pass(ff, cnt_j, 1.1, 0.0,
+                                          binary_heights=True)
+
+        def tfn(ff):
+            return soft._multilabel_pass(ff, cnt_t, 1.1, 0.0, True,
+                                         soft.KERNELS)
+    else:
+        def jfn(ff):
+            return jsoft._minplus_hard(ff, jnp.float32(1.3),
+                                       binary_heights=True)
+
+        def tfn(ff):
+            return soft._MinplusHard.apply(ff, core.f32(1.3), True,
+                                           soft.KERNELS)
+
+    got = {}
+    for scan in ("0", "1"):
+        monkeypatch.setenv(SCAN_KNOB, scan)
+        calls.clear()
+        port = _port_value_and_grad(tfn, f, cot)
+        assert "binary_grad_scan" in calls and "minplus_grad" not in calls, (
+            scan, calls)
+        ref = _jax_value_and_grad(jfn, f, cot)
+        assert np.array_equal(port[0], ref[0])
+        np.testing.assert_allclose(port[1], ref[1], rtol=1e-5, atol=1e-5)
+        got[scan] = port
+    assert np.array_equal(got["0"][0], got["1"][0])
+    assert np.array_equal(got["0"][1], got["1"][1])
+
+
+def test_bench_slice_matches_jax_under_scan_knob(monkeypatch, jax_bench):
+    """bench.py's fwd+bwd (multilabel_edtsq at bench flags) on a 16^3
+    make_labels volume under EDT_TPU_BINARY_GRAD_SCAN=0: the port's
+    backward is K4 on the binary pass and K3 on the other two, as without
+    the knob; the forward bit-equal to the JAX package's under the knob
+    and the gradient within tolerance of it."""
+    labels, occ, w = _bench_inputs()
+    monkeypatch.setenv(SCAN_KNOB, "0")
+    calls = _count_wrappers(monkeypatch)
+    port = _port_bench(labels, occ, w)
+    assert calls.count("minplus_grad") == 2, calls
+    assert calls.count("binary_grad_scan") == 1, calls
+    _check(port, jax_bench["0"])
+    assert np.array_equal(port[0], jax_bench["1"][0])
