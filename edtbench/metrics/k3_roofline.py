@@ -1,0 +1,8 @@
+"""k3_roofline, under any suffix (``.loss``): K3's least time
+(edtbench.roofline) over its device time, in %."""
+
+from edtbench import roofline
+
+
+def read(rec):
+    return roofline.share(rec.trace, "K3") if rec.trace else None

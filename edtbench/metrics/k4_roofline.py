@@ -1,0 +1,8 @@
+"""k4_roofline, under any suffix (``.loss``): K4's least time
+(edtbench.roofline) over its device time, in %."""
+
+from edtbench import roofline
+
+
+def read(rec):
+    return roofline.share(rec.trace, "K4") if rec.trace else None
