@@ -2733,7 +2733,6 @@ def phase_export(exact, dev):
     bench.py's labels: bit-equal to compose.edtsq, K1 launched twice."""
     from edt_tpu_torch.ops import compose, minplus
     from edt_tpu_torch.utils import export as edt_export
-    from edt_tpu_torch.utils import profiling
 
     shape = (FULL,) * 3
     t0 = time.perf_counter()
@@ -2754,15 +2753,11 @@ def phase_export(exact, dev):
     exact.raise_if_failed("export")
     run_ms, run_all = cuda_ms(lambda: run(lt), reps=5)
     ref_ms, ref_all = cuda_ms(lambda: compose.edtsq(lt, ANISO, True), reps=5)
-    tp = profiling.throughput(lambda x: compose.edtsq(x, ANISO, True), lt,
-                              iters=5)
     print(f"export {FULL}^3 edtsq: export and serialize {export_s:.2f} s "
           f"({len(data)} bytes), load {load_s:.2f} s, run {run_ms:.2f} ms "
           f"median of {[round(t, 2) for t in run_all]} (K1 launches "
           f"{launches}), bit-equal to compose.edtsq: {ref_ms:.2f} ms median "
-          f"of {[round(t, 2) for t in ref_all]}; profiling.throughput of "
-          f"compose.edtsq {tp['seconds_per_call'] * 1e3:.2f} ms a call, "
-          f"{tp['voxels_per_second'] / 1e6:.1f} Mvox/s")
+          f"of {[round(t, 2) for t in ref_all]}")
 
 
 # ---------------- slice 9: rows past the shared-memory ceilings (B5) and

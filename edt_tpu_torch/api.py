@@ -31,6 +31,7 @@ import torch
 from edt_tpu_torch.ops import compose
 from edt_tpu_torch.ops import voxel_graph as vg
 from edt_tpu_torch.utils import host_reference
+from edt_tpu_torch.utils import profiling
 from edt_tpu_torch.utils.profiling import counters
 
 # Longest axis the device path takes; longer axes take the host's banded
@@ -221,14 +222,22 @@ def edtsq(
                 labels, anisotropy, bool(black_border), binary=take_binary,
                 devices=cards)
         else:
-            out = compose.edtsq(
-                torch.from_numpy(labels).to(dev),
-                anisotropy,
-                bool(black_border),
-                binary=take_binary,
-                axis_order=_sorted_axis_order(anisotropy),
-            )
-            result = out.contiguous().cpu().numpy()
+            with profiling.span("edt_tpu_torch.api", dev, shape=labels.shape,
+                                dtype=labels.dtype):
+                with profiling.span("edt_tpu_torch.api.copy_in", dev,
+                                    bytes=labels.nbytes):
+                    x = torch.from_numpy(labels).to(dev)
+                with profiling.span("edt_tpu_torch.api.transform", dev):
+                    out = compose.edtsq(
+                        x,
+                        anisotropy,
+                        bool(black_border),
+                        binary=take_binary,
+                        axis_order=_sorted_axis_order(anisotropy),
+                    )
+                with profiling.span("edt_tpu_torch.api.copy_out", dev,
+                                    bytes=out.numel() * out.element_size()):
+                    result = out.contiguous().cpu().numpy()
 
     if arr_order == "F":
         result = np.asfortranarray(result)

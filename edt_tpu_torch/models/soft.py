@@ -56,6 +56,7 @@ from edt_tpu_torch.ops import argmin, core, grad
 from edt_tpu_torch.ops import softmin as soft_ops
 from edt_tpu_torch.ops.wall_sentinels import WALL_SENT16, WALL_SENT32
 from edt_tpu_torch.parallel.sharded import all_to_all, rotate
+from edt_tpu_torch.utils import profiling
 
 F32 = torch.float32
 INF = float("inf")
@@ -181,11 +182,14 @@ class _MinplusHard(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, f, w2, binary_heights, kernels):
+        ctx.span = profiling.current()
         if binary_heights:
-            d, argj = _minplus_hard_binary_with_arg(f, w2)
-            o = _binary_offsets(f, argj)
+            with profiling.span("edt_tpu_torch.first_pass", f):
+                d, argj = _minplus_hard_binary_with_arg(f, w2)
+                o = _binary_offsets(f, argj)
         else:
-            d, o = kernels.forward(f, w2, emit_offsets=True)
+            with profiling.span("edt_tpu_torch.kernel", f, kernel="K2"):
+                d, o = kernels.forward(f, w2, emit_offsets=True)
         ctx.save_for_backward(o)
         ctx.binary_heights = binary_heights
         ctx.kernels = kernels
@@ -194,11 +198,14 @@ class _MinplusHard(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (o,) = ctx.saved_tensors
-        g = g.contiguous()
-        if ctx.binary_heights:
-            df = ctx.kernels.scan(g, o)
-        else:
-            df = ctx.kernels.gather(g, offsets=o)
+        with profiling.span("edt_tpu_torch.backward", g, ctx.span):
+            (g,) = profiling.contiguous(g)
+            if ctx.binary_heights:
+                with profiling.span("edt_tpu_torch.kernel", g, kernel="K4"):
+                    df = ctx.kernels.scan(g, o)
+            else:
+                with profiling.span("edt_tpu_torch.kernel", g, kernel="K3"):
+                    df = ctx.kernels.gather(g, offsets=o)
         return df, None, None, None
 
 
@@ -210,14 +217,17 @@ class _MinplusHardWalled(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, f, w2, cnt, binary_heights, kernels):
+        ctx.span = profiling.current()
         if binary_heights:
-            walls = argmin.walls_from_counts(cnt, w2)
-            d, argj = _minplus_hard_binary_with_arg(f, w2)
-            win = d <= walls
-            out = torch.where(win, d, walls)
-            o = _binary_offsets(f, argj, win)
+            with profiling.span("edt_tpu_torch.first_pass", f):
+                walls = argmin.walls_from_counts(cnt, w2)
+                d, argj = _minplus_hard_binary_with_arg(f, w2)
+                win = d <= walls
+                out = torch.where(win, d, walls)
+                o = _binary_offsets(f, argj, win)
         else:
-            out, o = kernels.forward(f, w2, walls=cnt, emit_offsets=True)
+            with profiling.span("edt_tpu_torch.kernel", f, kernel="K2"):
+                out, o = kernels.forward(f, w2, walls=cnt, emit_offsets=True)
         ctx.save_for_backward(o)
         ctx.binary_heights = binary_heights
         ctx.kernels = kernels
@@ -226,12 +236,15 @@ class _MinplusHardWalled(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (o,) = ctx.saved_tensors
-        g = g.contiguous()
         sent = torch.iinfo(o.dtype).min
-        if ctx.binary_heights:
-            df = ctx.kernels.scan(g, o, off_sent=sent)
-        else:
-            df = ctx.kernels.gather(g, offsets=o, off_sent=sent)
+        with profiling.span("edt_tpu_torch.backward", g, ctx.span):
+            (g,) = profiling.contiguous(g)
+            if ctx.binary_heights:
+                with profiling.span("edt_tpu_torch.kernel", g, kernel="K4"):
+                    df = ctx.kernels.scan(g, o, off_sent=sent)
+            else:
+                with profiling.span("edt_tpu_torch.kernel", g, kernel="K3"):
+                    df = ctx.kernels.gather(g, offsets=o, off_sent=sent)
         return df, None, None, None, None
 
 
@@ -242,7 +255,9 @@ class _MinplusSoft(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, f, w2, t, kernels):
-        d = kernels.softmin(f, w2, t)
+        ctx.span = profiling.current()
+        with profiling.span("edt_tpu_torch.kernel", f, kernel="K5"):
+            d = kernels.softmin(f, w2, t)
         # d.detach(): an output saved as it is leaves a fake tensor among a
         # non-strict torch.export's constants
         ctx.save_for_backward(f, d.detach())
@@ -252,7 +267,10 @@ class _MinplusSoft(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         f, d = ctx.saved_tensors
-        df, _ = ctx.kernels.softmin_grad(f, d, g.contiguous(), ctx.w2, ctx.t)
+        with profiling.span("edt_tpu_torch.backward", g, ctx.span):
+            (g,) = profiling.contiguous(g)
+            with profiling.span("edt_tpu_torch.kernel", g, kernel="K6"):
+                df, _ = ctx.kernels.softmin_grad(f, d, g, ctx.w2, ctx.t)
         return df, None, None, None
 
 
@@ -284,18 +302,24 @@ def _soft_pass(f, w, black_border, temperature=0.0, binary_heights=False,
     else:
         d = _MinplusHard.apply(f2, w2, bool(binary_heights), kernels)
     d = d.reshape(f.shape)
-    if black_border:
+    if not black_border:
+        return d
+    with profiling.span("edt_tpu_torch.mask", f):
         idx = torch.arange(n, dtype=F32, device=f.device)
         lo = idx + 1.0
         hi = n - idx
         walls = torch.minimum(w2 * (lo * lo), w2 * (hi * hi))
         if _soft(temperature):
-            d = _blend_walls(d, walls, temperature)
-        else:
-            # ties go to the min-plus candidate, so a source exactly at the
-            # wall distance keeps its gradient
-            d = torch.where(d <= walls, d, walls)
-    return d
+            return _blend_walls(d, walls, temperature)
+        # ties go to the min-plus candidate, so a source exactly at the
+        # wall distance keeps its gradient
+        return torch.where(d <= walls, d, walls)
+
+
+def _pass_kind(temperature, first_closed_form):
+    if _soft(temperature):
+        return "K5"
+    return "closed_form" if first_closed_form else "K2"
 
 
 def _passes(f, anis, black_border, temperature, binary_heights, kernels,
@@ -304,18 +328,25 @@ def _passes(f, anis, black_border, temperature, binary_heights, kernels,
     ``lead`` of f, in ascending-pitch order; the leading axes ride in the
     rows of every pass. With ``axis_name`` the spatial axis-0 pass runs
     rotated: spatial axis 2 (axis 2 + lead of f) split over the ranks,
-    spatial axis 0 gathered whole."""
-    for step, ax in enumerate(_pass_order(anis)):
-        a = ax + lead
-        rotated = axis_name is not None and ax == 0
-        if rotated:
-            f = rotate(f, axis_name, 2 + lead, lead)
-        f = _soft_pass(f.movedim(a, -1).contiguous(), float(anis[ax]),
-                       black_border, temperature,
-                       binary_heights=binary_heights and step == 0,
-                       kernels=kernels).movedim(-1, a)
-        if rotated:
-            f = rotate(f, axis_name, lead, 2 + lead)
+    spatial axis 0 gathered whole. Its root span is
+    ``edt_tpu_torch.multilabel_edtsq``'s, for every differentiable
+    transform."""
+    with profiling.span("edt_tpu_torch.multilabel_edtsq", f, shape=f.shape,
+                        temperature=temperature,
+                        sharded=axis_name is not None):
+        for step, ax in enumerate(_pass_order(anis)):
+            a = ax + lead
+            rotated = axis_name is not None and ax == 0
+            first = binary_heights and step == 0
+            if rotated:
+                f = rotate(f, axis_name, 2 + lead, lead)
+            with profiling.pass_span(f, a, _pass_kind(temperature, first)):
+                (fa,) = profiling.contiguous(f.movedim(a, -1))
+                f = _soft_pass(fa, float(anis[ax]), black_border,
+                               temperature, binary_heights=first,
+                               kernels=kernels).movedim(-1, a)
+            if rotated:
+                f = rotate(f, axis_name, lead, 2 + lead)
     return f
 
 
@@ -427,22 +458,24 @@ def _wall_counts(labels, axis, black_border):
         idt, sent = torch.int16, WALL_SENT16
     else:
         idt, sent = torch.int32, WALL_SENT32
-    shape1 = [1] * labels.dim()
-    shape1[axis] = n
-    idx = torch.arange(n, dtype=idt, device=labels.device).reshape(shape1)
-    neq = labels.narrow(axis, 1, n - 1) != labels.narrow(axis, 0, n - 1)
-    pad_shape = list(labels.shape)
-    pad_shape[axis] = 1
-    edge = torch.full(pad_shape, bool(black_border), dtype=torch.bool,
-                      device=labels.device)
-    is_start = torch.cat([edge, neq], dim=axis)
-    is_end = torch.cat([neq, edge], dim=axis)
-    # a missing start marker (open-left run) gives li = i + n + 2 > n
-    li = idx - torch.where(is_start, idx, -(n + 1)).cummax(dim=axis).values + 1
-    ri = (torch.where(is_end, idx, 2 * n).flip(axis).cummin(dim=axis).values
-          .flip(axis) + 1 - idx)
-    wmin = torch.minimum(li, ri)  # <= 2n + 2, exact
-    return torch.where(wmin > n, sent, wmin)
+    with profiling.span("edt_tpu_torch.bounds", labels, axis=axis, n=n):
+        shape1 = [1] * labels.dim()
+        shape1[axis] = n
+        idx = torch.arange(n, dtype=idt, device=labels.device).reshape(shape1)
+        neq = labels.narrow(axis, 1, n - 1) != labels.narrow(axis, 0, n - 1)
+        pad_shape = list(labels.shape)
+        pad_shape[axis] = 1
+        edge = torch.full(pad_shape, bool(black_border), dtype=torch.bool,
+                          device=labels.device)
+        is_start = torch.cat([edge, neq], dim=axis)
+        is_end = torch.cat([neq, edge], dim=axis)
+        # a missing start marker (open-left run) gives li = i + n + 2 > n
+        li = (idx - torch.where(is_start, idx, -(n + 1)).cummax(dim=axis).values
+              + 1)
+        ri = (torch.where(is_end, idx, 2 * n).flip(axis).cummin(dim=axis)
+              .values.flip(axis) + 1 - idx)
+        wmin = torch.minimum(li, ri)  # <= 2n + 2, exact
+        return torch.where(wmin > n, sent, wmin)
 
 
 def wall_counts_for(labels, black_border=False, axis_name=None, *,
@@ -478,10 +511,11 @@ def _multilabel_pass(f, wall_cnt_ax, w, temperature=0.0, binary_heights=False,
     w = core.f32(w)
     w2 = core.f32(w * w)
     if _soft(temperature):
-        walls = argmin.walls_from_counts(wall_cnt_ax, w2)
         d = _MinplusSoft.apply(f.reshape(-1, n), w2, core.f32(temperature),
                                kernels).reshape(f.shape)
-        return _blend_walls(d, walls, temperature)
+        with profiling.span("edt_tpu_torch.mask", f):
+            walls = argmin.walls_from_counts(wall_cnt_ax, w2)
+            return _blend_walls(d, walls, temperature)
     d = _MinplusHardWalled.apply(f.reshape(-1, n), w2,
                                  wall_cnt_ax.reshape(-1, n),
                                  bool(binary_heights), kernels)
@@ -526,28 +560,34 @@ def multilabel_edtsq(labels, occupancy=None, anisotropy=None,
     else:
         occ = _as_tensor(occupancy, dev)
     binary_occupancy = bool(binary_occupancy)
-    f = _heights(barrier, occ)
-    for step, ax in enumerate(_pass_order(anis)):
-        rotated = axis_name is not None and ax == 0
-        if rotated:
-            f = rotate(f, axis_name, 2, 0)
-            if wall_counts is not None:
-                cnt = all_to_all(_as_tensor(wall_counts[0], dev), axis_name,
-                                 2, 0)
-            else:
-                cnt = _wall_counts(all_to_all(lab, axis_name, 2, 0), 0,
-                                   black_border)
-        elif wall_counts is not None:
-            cnt = _as_tensor(wall_counts[ax], dev)
-        else:
-            # counts in the volume's own layout: the pass transpose then
-            # moves int16 counts, not labels
-            cnt = _wall_counts(lab, ax, black_border)
-        f = _multilabel_pass(
-            f.movedim(ax, -1).contiguous(), cnt.movedim(ax, -1).contiguous(),
-            float(anis[ax]), temperature,
-            binary_heights=binary_occupancy and step == 0,
-            kernels=kernels).movedim(-1, ax)
-        if rotated:
-            f = rotate(f, axis_name, 0, 2)
-    return torch.where(lab == 0, 0.0, f)
+    with profiling.span("edt_tpu_torch.multilabel_edtsq", lab,
+                        shape=lab.shape, temperature=temperature,
+                        sharded=axis_name is not None):
+        f = _heights(barrier, occ)
+        for step, ax in enumerate(_pass_order(anis)):
+            rotated = axis_name is not None and ax == 0
+            first = binary_occupancy and step == 0
+            if rotated:
+                f = rotate(f, axis_name, 2, 0)
+            with profiling.pass_span(f, ax, _pass_kind(temperature, first)):
+                if rotated and wall_counts is not None:
+                    cnt = all_to_all(_as_tensor(wall_counts[0], dev),
+                                     axis_name, 2, 0)
+                elif rotated:
+                    cnt = _wall_counts(all_to_all(lab, axis_name, 2, 0), 0,
+                                       black_border)
+                elif wall_counts is not None:
+                    cnt = _as_tensor(wall_counts[ax], dev)
+                else:
+                    # counts in the volume's own layout: the pass transpose
+                    # then moves int16 counts, not labels
+                    cnt = _wall_counts(lab, ax, black_border)
+                fa, ca = profiling.contiguous(f.movedim(ax, -1),
+                                              cnt.movedim(ax, -1))
+                f = _multilabel_pass(fa, ca, float(anis[ax]), temperature,
+                                     binary_heights=first,
+                                     kernels=kernels).movedim(-1, ax)
+            if rotated:
+                f = rotate(f, axis_name, 0, 2)
+        with profiling.span("edt_tpu_torch.mask", f):
+            return torch.where(lab == 0, 0.0, f)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from edt_tpu_torch.ops import core, minplus
+from edt_tpu_torch.utils import profiling
 
 
 def use_pallas_default():
@@ -58,8 +59,9 @@ def default_parabolic_fn(use_pallas=None):
 
 
 def _along_last(fn, axis, *tensors):
-    """Move ``axis`` of every tensor last (contiguous), call fn, move back."""
-    moved = [t.movedim(axis, -1).contiguous() for t in tensors]
+    """Move ``axis`` of every tensor last (contiguous, in a transpose
+    span), call fn, move back."""
+    moved = profiling.contiguous(*(t.movedim(axis, -1) for t in tensors))
     return fn(*moved).movedim(-1, axis)
 
 
@@ -108,19 +110,25 @@ def edtsq(
     anisotropy = [core.f32(a) for a in anisotropy]
     if len(anisotropy) != nd:
         raise ValueError(f"anisotropy must have {nd} components")
+    kind, mode_of = "given", None
     if parabolic_fn is None and minplus_fn is None:
         parabolic_fn = minplus.make_parabolic_fn()
+        kind, mode_of = "K1", lambda n: minplus.k1_mode(n, not binary)
     if axis_order is None:
         axis_order = tuple(range(nd - 1, -1, -1))
 
-    a1 = axis_order[0]
-    f = _along_last(
-        lambda lab: core.rp_pass_sq(lab, anisotropy[a1], black_border),
-        a1, labels)
-
-    for ax in axis_order[1:]:
-        f = parabolic_along(f, labels, ax, anisotropy[ax], black_border,
-                            binary, parabolic_fn, minplus_fn)
+    with profiling.span("edt_tpu_torch.edtsq", labels, shape=labels.shape,
+                        binary=binary, dtype=labels.dtype):
+        a1 = axis_order[0]
+        with profiling.pass_span(labels, a1, "closed_form"):
+            f = _along_last(
+                lambda lab: core.rp_pass_sq(lab, anisotropy[a1], black_border),
+                a1, labels)
+        for ax in axis_order[1:]:
+            with profiling.pass_span(labels, ax, kind, mode_of):
+                f = parabolic_along(f, labels, ax, anisotropy[ax],
+                                    black_border, binary, parabolic_fn,
+                                    minplus_fn)
     return f
 
 

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from edt_tpu_torch.utils import profiling
+
 F32 = torch.float32
 INF = float("inf")
 
@@ -48,15 +50,16 @@ def segment_bounds(labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     dtype torch compares works. ``start`` doubles as a segment id.
     """
     n = labels.shape[-1]
-    idx = torch.arange(n, dtype=torch.int32, device=labels.device)
-    neq = labels[..., 1:] != labels[..., :-1]
-    pad = torch.ones(labels.shape[:-1] + (1,), dtype=torch.bool,
-                     device=labels.device)
-    is_start = torch.cat([pad, neq], dim=-1)
-    is_end = torch.cat([neq, pad], dim=-1)
-    start = torch.where(is_start, idx, 0).cummax(dim=-1).values
-    end = (torch.where(is_end, idx + 1, n).flip(-1)
-           .cummin(dim=-1).values.flip(-1))
+    with profiling.span("edt_tpu_torch.bounds", labels, n=n):
+        idx = torch.arange(n, dtype=torch.int32, device=labels.device)
+        neq = labels[..., 1:] != labels[..., :-1]
+        pad = torch.ones(labels.shape[:-1] + (1,), dtype=torch.bool,
+                         device=labels.device)
+        is_start = torch.cat([pad, neq], dim=-1)
+        is_end = torch.cat([neq, pad], dim=-1)
+        start = torch.where(is_start, idx, 0).cummax(dim=-1).values
+        end = (torch.where(is_end, idx + 1, n).flip(-1)
+               .cummin(dim=-1).values.flip(-1))
     return start, end
 
 
@@ -71,15 +74,16 @@ def rp_pass_sq(labels: torch.Tensor, w: float, black_border: bool) -> torch.Tens
         return torch.zeros(labels.shape, dtype=F32, device=labels.device)
     w = f32(w)
     start, end = segment_bounds(labels)
-    idx = torch.arange(n, dtype=torch.int32, device=labels.device)
-    dl = (idx - start + 1).to(F32) * w
-    dr = (end - idx).to(F32) * w
-    if not black_border:
-        dl = torch.where(start > 0, dl, INF)
-        dr = torch.where(end < n, dr, INF)
-    d = torch.minimum(dl, dr)
-    d = torch.where(labels == 0, 0.0, d)
-    return d * d
+    with profiling.span("edt_tpu_torch.first_pass", labels):
+        idx = torch.arange(n, dtype=torch.int32, device=labels.device)
+        dl = (idx - start + 1).to(F32) * w
+        dr = (end - idx).to(F32) * w
+        if not black_border:
+            dl = torch.where(start > 0, dl, INF)
+            dr = torch.where(end < n, dr, INF)
+        d = torch.minimum(dl, dr)
+        d = torch.where(labels == 0, 0.0, d)
+        return d * d
 
 
 def _minplus_chunk(f: torch.Tensor, seg, w2: float) -> torch.Tensor:
@@ -185,18 +189,25 @@ def parabolic_pass_sq(
         return d.reshape(shape)
 
     if binary:
+        with profiling.span("edt_tpu_torch.kernel", f, kernel="minplus"):
+            if minplus_fn is None:
+                d = minplus_masked(f2, None, w2, row_chunk)
+            else:
+                d = minplus_fn(f2, f2, f2, w2, masked=False)
+        d = d.reshape(shape)
+        if not black_border:
+            return d
+        with profiling.span("edt_tpu_torch.mask", f):
+            return binary_border_sq(d, n, w2)
+
+    start, end = segment_bounds(labels)
+    with profiling.span("edt_tpu_torch.kernel", f, kernel="minplus"):
         if minplus_fn is None:
             d = minplus_masked(f2, None, w2, row_chunk)
         else:
-            d = minplus_fn(f2, f2, f2, w2, masked=False)
-        d = d.reshape(shape)
-        return binary_border_sq(d, n, w2) if black_border else d
-
-    start, end = segment_bounds(labels)
-    if minplus_fn is None:
-        d = minplus_masked(f2, None, w2, row_chunk)
-    else:
-        d = minplus_fn(f2, start.reshape(-1, n), end.reshape(-1, n), w2,
-                       masked=True)
-    d = border_envelopes_sq(d.reshape(shape), start, end, n, w2, black_border)
-    return torch.where(labels == 0, 0.0, d)
+            d = minplus_fn(f2, start.reshape(-1, n), end.reshape(-1, n), w2,
+                           masked=True)
+    with profiling.span("edt_tpu_torch.mask", f):
+        d = border_envelopes_sq(d.reshape(shape), start, end, n, w2,
+                                black_border)
+        return torch.where(labels == 0, 0.0, d)

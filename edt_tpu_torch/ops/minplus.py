@@ -31,6 +31,7 @@ import functools
 import torch
 
 from edt_tpu_torch.ops import _build, core
+from edt_tpu_torch.utils import profiling
 
 # Longest row of the kernel's shared-memory mode: it stages one f32 row in
 # shared memory, and an H100 block may opt in to 232448 bytes, less the
@@ -52,6 +53,17 @@ def segment_floor(n, masked):
     long-row mode) keep the row's floor; binary rows are one segment,
     whose min f is the row's."""
     return masked and n <= SEGMENT_FLOOR_AXIS
+
+
+def k1_mode(n, masked):
+    """K1's mode on rows of n voxels, as a pass span names it: "long" past
+    ``MAX_AXIS``, else "segment" or "row" (masked rows, by
+    ``segment_floor``) or "binary"."""
+    if n > MAX_AXIS:
+        return "long"
+    if not masked:
+        return "binary"
+    return "segment" if segment_floor(n, masked) else "row"
 
 
 # The plain versions' (rows, targets, n) cost tensors stay below this.
@@ -188,8 +200,11 @@ def make_parabolic_fn(minplus_fn=None):
 
     def fn(f2d, labels2d, w2, black_border, binary):
         if binary:
-            return minplus_fn(f2d, None, None, w2, black_border, masked=False)
-        ss, se = core.segment_bounds(labels2d)
-        return minplus_fn(f2d, ss, se, w2, black_border, masked=True)
+            ss = se = None
+        else:
+            ss, se = core.segment_bounds(labels2d)
+        with profiling.span("edt_tpu_torch.kernel", f2d, kernel="K1"):
+            return minplus_fn(f2d, ss, se, w2, black_border,
+                              masked=not binary)
 
     return fn

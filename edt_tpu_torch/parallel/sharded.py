@@ -59,6 +59,7 @@ from torch.distributed.tensor import DTensor, Shard
 from edt_tpu_torch import api
 from edt_tpu_torch.ops import compose, core, minplus
 from edt_tpu_torch.ops.voxel_graph import doubled_3d_torch
+from edt_tpu_torch.utils import profiling
 
 
 def default_mesh(axis_name: str = "sp", *, device=None) -> DeviceMesh:
@@ -89,18 +90,28 @@ def all_to_all(x: torch.Tensor, group, split_axis: int,
     if x.shape[split_axis] % n:
         raise ValueError(f"axis {split_axis} of {tuple(x.shape)} does not "
                          f"split over {n} ranks")
-    send = x.movedim(split_axis, 0)
-    send = send.reshape(n, send.shape[0] // n, *send.shape[1:]).contiguous()
-    recv = torch.empty_like(send)
-    if send.numel():
-        dist.all_to_all_single(recv.view(-1).view(torch.uint8),
-                               send.view(-1).view(torch.uint8), group=group)
-    shape = list(x.shape)
-    shape[split_axis] //= n
-    shape[concat_axis] *= n
-    # recv[j] is rank j's block: put the split axis back, then rank j's
-    # part of the concat axis just before it (index j * size + k)
-    return recv.movedim(1, split_axis + 1).movedim(0, concat_axis).reshape(shape)
+    with profiling.span("edt_tpu_torch.rotate", x, ranks=n,
+                        bytes=x.numel() * x.element_size()):
+        send = x.movedim(split_axis, 0)
+        (send,) = profiling.contiguous(
+            send.reshape(n, send.shape[0] // n, *send.shape[1:]))
+        recv = torch.empty_like(send)
+        if send.numel():
+            with profiling.span("edt_tpu_torch.exchange", x,
+                                bytes=send.numel() * send.element_size()):
+                dist.all_to_all_single(recv.view(-1).view(torch.uint8),
+                                       send.view(-1).view(torch.uint8),
+                                       group=group)
+        shape = list(x.shape)
+        shape[split_axis] //= n
+        shape[concat_axis] *= n
+        # recv[j] is rank j's block: put the split axis back, then rank j's
+        # part of the concat axis just before it (index j * size + k)
+        with profiling.span(profiling.TRANSPOSE, x, bytes=0) as s:
+            out = (recv.movedim(1, split_axis + 1).movedim(0, concat_axis)
+                   .reshape(shape))
+            s.copied(recv, out)
+        return out
 
 
 class _Rotate(torch.autograd.Function):
