@@ -3535,7 +3535,7 @@ def phase_export_grad(exact, dev):
                                               barrier=barrier,
                                               binary_occupancy=True),
          (lt, occ), {"minplus_argmin": 2, "minplus_grad": 2,
-                     "binary_grad_scan": 1},
+                     "binary_grad_scan": 1, "wall_counts": 3},
          zero_grad_launches, grad_launches, (2, 2, 1)),
         (f"{S}^3 soft_edtsq t={SOFT_T}",
          lambda o: soft.soft_edtsq(o, (1.0, 1.0, 1.0), True, float(3 * S ** 2),
@@ -3564,6 +3564,71 @@ def phase_export_grad(exact, dev):
               f"{live_ms:.2f} ms median of {[round(x, 2) for x in live_all]}")
         del got
     exact.raise_if_failed("export_grad")
+
+
+# ---------------- B14: the segment bounds and wall counts in one row scan
+
+
+def phase_bounds(exact, dev):
+    """The scan kernel (``ops/bounds.py``) at the cells' shapes: the rows
+    of the 512^3 block labels (each of ml512.fwd's three passes), the rows
+    of the 511^3 bool cube (cube511.fwd's first pass) and the wall counts
+    along axes 0, 1 and 2 of the 512^3 labels (ml512.loss), each
+    bit-equal to its plain version on the same card tensor, its ms beside
+    its byte bound and the plain version's ms; then the kernel's launches
+    in the cells' calls, and the 512^3 forward's ms."""
+    from edt_tpu_torch import torch_api
+    from edt_tpu_torch.ops import bounds
+
+    lt = torch.from_numpy(block_labels(np.random.default_rng(42),
+                                       (FULL,) * 3).view(np.int32)).to(dev)
+    cube = torch.ones((FULL - 1,) * 3, dtype=torch.bool, device=dev)
+    rows = lt.reshape(-1, FULL)
+    cube_rows = cube.reshape(-1, FULL - 1)
+    cases = [(f"segment_bounds {tuple(rows.shape)} int32 (ml512.fwd)",
+              lambda: bounds.segment_bounds(rows),
+              lambda: bounds.segment_bounds_plain(rows), rows, 12),
+             (f"segment_bounds {tuple(cube_rows.shape)} bool (cube511.fwd)",
+              lambda: bounds.segment_bounds(cube_rows),
+              lambda: bounds.segment_bounds_plain(cube_rows), cube_rows, 9)]
+    for ax in range(3):
+        cases.append((f"wall_counts axis {ax} of {FULL}^3 int32 "
+                      f"(ml512.loss)",
+                      lambda ax=ax: bounds.wall_counts(lt, ax, True),
+                      lambda ax=ax: bounds.wall_counts_plain(lt, ax, True),
+                      lt, 6))
+    for label, kernel, plain, x, per_voxel in cases:
+        got, ref = kernel(), plain()
+        for g, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            exact.check(f"bounds {label}", g, r)
+        del got, ref
+        ms, all_ms = cuda_ms(kernel, reps=10)
+        plain_ms, _ = cuda_ms(plain, reps=3)
+        least, _ = bound_ms(per_voxel * x.numel(), 0)
+        print(f"bounds {label}: kernel {ms:.3f} ms median of "
+              f"{[round(t, 3) for t in all_ms]}, bound {least:.3f} ms "
+              f"({per_voxel} B a voxel, {100 * least / ms:.1f} %), plain "
+              f"{plain_ms:.3f} ms")
+    exact.raise_if_failed("bounds")
+    occ = (lt != 0).float()
+    barrier = float(np.sum((np.asarray(ANISO) * FULL) ** 2))
+    calls = ((f"torch_api.edtsq {FULL}^3 block labels",
+              lambda: torch_api.edtsq(lt, ANISO, True), 3),
+             (f"torch_api.edtsq {FULL - 1}^3 bool cube, binary",
+              lambda: torch_api.edtsq(cube, (1.0, 1.0, 1.0), True,
+                                      binary=True), 1),
+             (f"multilabel_edtsq {FULL}^3 fwd+bwd",
+              lambda: fwd_bwd(lt, occ, True, barrier), 3))
+    for label, fn, want in calls:
+        bounds.launches = 0
+        fn()
+        if bounds.launches != want:
+            raise AssertionError(f"bounds: {label} launched the kernel "
+                                 f"{bounds.launches} times, expected {want}")
+        ms, all_ms = cuda_ms(fn, reps=5)
+        print(f"bounds: {label}: {want} launches a call, {ms:.2f} ms median "
+              f"of {[round(t, 2) for t in all_ms]}")
 
 
 # ---------------- slice 10: the sharded transforms and soft passes
@@ -4745,6 +4810,8 @@ def main(only=()) -> int:
                                   kernels, dev)),
               ("export_grad: exported gradients",
                lambda: phase_export_grad(Exact(), dev)),
+              ("bounds: the segment bounds and wall counts' kernel (B14)",
+               lambda: phase_bounds(Exact(), dev)),
               ("sharded: torch.distributed ranks",
                lambda: phase_sharded(kernels, dev)),
               ("train_sharded: the trainers' sharded steps",

@@ -52,9 +52,8 @@ import torch
 import torch.distributed as dist
 
 from edt_tpu_torch import api
-from edt_tpu_torch.ops import argmin, core, grad
+from edt_tpu_torch.ops import argmin, bounds, core, grad
 from edt_tpu_torch.ops import softmin as soft_ops
-from edt_tpu_torch.ops.wall_sentinels import WALL_SENT16, WALL_SENT32
 from edt_tpu_torch.parallel.sharded import all_to_all, rotate
 from edt_tpu_torch.utils import profiling
 
@@ -452,30 +451,17 @@ def _wall_counts(labels, axis, black_border):
     """Distance in voxels to the nearest label-boundary wall along
     ``axis``, in labels' own layout: min(i - start + 1, end - i), int16
     when the axis fits, the sentinel at an open side (a run touching the
-    volume edge without ``black_border``)."""
+    volume edge without ``black_border``). CUDA tensors take the kernel
+    through its custom op, CPU tensors the plain version (``ops.bounds``).
+    """
     n = labels.shape[axis]
-    if n <= argmin.I16_MAX_AXIS:  # 2n + 2 must fit the dtype
-        idt, sent = torch.int16, WALL_SENT16
-    else:
-        idt, sent = torch.int32, WALL_SENT32
-    with profiling.span("edt_tpu_torch.bounds", labels, axis=axis, n=n):
-        shape1 = [1] * labels.dim()
-        shape1[axis] = n
-        idx = torch.arange(n, dtype=idt, device=labels.device).reshape(shape1)
-        neq = labels.narrow(axis, 1, n - 1) != labels.narrow(axis, 0, n - 1)
-        pad_shape = list(labels.shape)
-        pad_shape[axis] = 1
-        edge = torch.full(pad_shape, bool(black_border), dtype=torch.bool,
-                          device=labels.device)
-        is_start = torch.cat([edge, neq], dim=axis)
-        is_end = torch.cat([neq, edge], dim=axis)
-        # a missing start marker (open-left run) gives li = i + n + 2 > n
-        li = (idx - torch.where(is_start, idx, -(n + 1)).cummax(dim=axis).values
-              + 1)
-        ri = (torch.where(is_end, idx, 2 * n).flip(axis).cummin(dim=axis)
-              .values.flip(axis) + 1 - idx)
-        wmin = torch.minimum(li, ri)  # <= 2n + 2, exact
-        return torch.where(wmin > n, sent, wmin)
+    card = labels.device.type == "cuda"
+    with profiling.span("edt_tpu_torch.bounds", labels, axis=axis, n=n,
+                        impl="kernel" if card else "plain"):
+        if card:
+            return torch.ops.edt_tpu_torch.wall_counts(labels, axis,
+                                                       bool(black_border))
+        return bounds.wall_counts_plain(labels, axis, black_border)
 
 
 def wall_counts_for(labels, black_border=False, axis_name=None, *,

@@ -3,7 +3,7 @@
 The N-D multi-label EDT decomposes into 1-D passes (Saito–Toriwaki):
 
   pass 1: Rosenfeld–Pfaltz, here a closed form over per-voxel segment
-          bounds that come from cummax/cummin scans:
+          bounds (one row scan, ``ops.bounds``):
               d(i) = min(w (i - seg_start(i) + 1), w (seg_end(i) - i))
           with INF where a segment touches an open (non-black) border and
           0 at background, squared at the end;
@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from edt_tpu_torch.ops import bounds
 from edt_tpu_torch.utils import profiling
 
 F32 = torch.float32
@@ -46,21 +47,18 @@ def f32(x) -> float:
 def segment_bounds(labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-voxel [start, end) of the contiguous same-label run along axis -1.
 
-    int32 scans over positions; labels are only compared with ``!=``, so any
-    dtype torch compares works. ``start`` doubles as a segment id.
+    int32 positions; labels are only compared with ``!=`` (on a card: bool,
+    integers and floats, ``bounds.segment_bounds``). ``start`` doubles as
+    a segment id. CUDA tensors take the kernel through its custom op, CPU
+    tensors the plain version (``ops.bounds``).
     """
     n = labels.shape[-1]
-    with profiling.span("edt_tpu_torch.bounds", labels, n=n):
-        idx = torch.arange(n, dtype=torch.int32, device=labels.device)
-        neq = labels[..., 1:] != labels[..., :-1]
-        pad = torch.ones(labels.shape[:-1] + (1,), dtype=torch.bool,
-                         device=labels.device)
-        is_start = torch.cat([pad, neq], dim=-1)
-        is_end = torch.cat([neq, pad], dim=-1)
-        start = torch.where(is_start, idx, 0).cummax(dim=-1).values
-        end = (torch.where(is_end, idx + 1, n).flip(-1)
-               .cummin(dim=-1).values.flip(-1))
-    return start, end
+    card = labels.device.type == "cuda"
+    with profiling.span("edt_tpu_torch.bounds", labels, n=n,
+                        impl="kernel" if card else "plain"):
+        if card:
+            return torch.ops.edt_tpu_torch.segment_bounds(labels)
+        return bounds.segment_bounds_plain(labels)
 
 
 def rp_pass_sq(labels: torch.Tensor, w: float, black_border: bool) -> torch.Tensor:

@@ -10,9 +10,11 @@ serialized to bytes and called back without retracing.
 Every kernel is a ``torch.library`` custom op (K1
 ``edt_tpu_torch::minplus_walls``; K2 to K6 ``::minplus_argmin``,
 ``::minplus_grad``, ``::binary_grad_scan``, ``::softmin``,
-``::softmin_grad``), so a program records each pass as one op node and
-loading it needs ``edt_tpu_torch`` imported in the serving process to
-register the ops. That is where the port differs from ``jax.export``,
+``::softmin_grad``; the row scans ``::segment_bounds`` and
+``::wall_counts``, recorded for card tensors only: on the CPU they stay
+torch ops), so a program records each pass as one op node and loading it
+needs ``edt_tpu_torch`` imported in the serving process to register the
+ops. That is where the port differs from ``jax.export``,
 whose artifacts run with no import of the exporting package. The
 differentiable transforms export with their gradient, as ``jax.grad`` of
 them does there:
